@@ -6,28 +6,41 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
   1. card: require CUDA; print the card's name and power limit.
-  2. build: compile every CUDA kernel of the predict path from the sources
-     in the checkout (one nvcc per source, in parallel).
+  2. build: compile every CUDA kernel of the predict and train paths from
+     the sources in the checkout (one nvcc per source, in parallel).
   3. kernel parity: each kernel against its plain PyTorch version on the
-     card, at the predict path's shapes: NMS keep-masks identical at the
-     RPN shape (4 x 6000) and the per-class shape (80 x 300); RoI crop+pool
-     on a (4, 38, 50, 512) map x 300 RoIs identical in f32 and in bf16 (both
+     card, at the main paths' shapes: NMS keep-masks identical at the
+     predict RPN shape (4 x 6000 -> 300), the per-class shape (80 x 300)
+     and the train RPN shape (4 x 12000 -> 2000); RoI crop+pool on a
+     (4, 38, 50, 512) map x 300 RoIs identical in f32 and in bf16 (both
      round each tap product and each two-tap sum once, and the bf16 rows
-     before the x-taps, so no value may differ).
+     before the x-taps, so no value may differ); the RoI backward on the
+     same map x 128 RoIs (the train shape), normal and ReLU'd, f32 and
+     bf16, within the tolerance of `backward_close`; a CUDA feature map
+     that requires grad gets a grad_fn from roi_pool_taps and its backward
+     launches the backward kernel. Beside them, the library convolution
+     the unported conv kernels would replace is timed.
   4. reference: the tiny config (full-width VGG-16, 128x160 canvas) on the
      card against the same model on the CPU (plain versions), stage by stage
-     on identical inputs, then the whole predict.
-  5. main path: the default ModelConfig (VGG-16, 21 classes, caps
+     on identical inputs, then the whole predict; then one train step's
+     losses and gradients, with the same weights and the same draws.
+  5. main path, predict: the default ModelConfig (VGG-16, 21 classes, caps
      6000 -> 300) at full width through Engine, on a 608x800 canvas, B=4,
      seeded random weights and images: predict at score thresholds 0.05 and
      0.0, one predict_image, and one bf16 predict; the kernels' launch
      counts must rise. TF32 is off for every parity phase.
-  6. timing: Engine.predict on the host's uint8 batch, ms per batch and
-     img/s (f32 with TF32 off, f32 with cuDNN TF32 on, bf16). Each kernel's
-     time, with CUDA events beside its plain version's and its bound, is
-     taken in phase 3.
-  7. profile: torch.profiler over warm Engine.predict calls, f32 and bf16
-     with TF32 off: device time by layer, idle share, device ops per call.
+  6. main path, train: the default ModelConfig at full width through
+     Engine.train_step and Engine.train_epoch, B=4 synthetic 600x800
+     samples on the 608x800 canvas: the f32 loss must fall over 10 steps on
+     one batch, with all four losses positive at the first step; two steps
+     of train_epoch; bf16 train steps; all three kernels must launch.
+  7. timing: Engine.predict and Engine.train_step on the host's batch, ms
+     per batch and img/s (f32 with TF32 off, f32 with cuDNN TF32 on, bf16),
+     and the peak memory of the f32 call. Each kernel's time, with CUDA
+     events beside its plain version's and its bound, is taken in phase 3.
+  8. profile: torch.profiler over warm Engine.predict calls and warm
+     Engine.train_step calls, f32 and bf16 with TF32 off: device time by
+     layer, idle share, device ops per call.
 Then, on the last lines: the card line, one JSON line of the kernels, and
 {"ok": true, "device": {...}}.
 """
@@ -137,7 +150,9 @@ def phase_kernel_parity(dev, rng):
     from fasterrcnn_torch.ops import roi as roi_ops
 
     results = {}
-    for label, n, k, thr, max_keep in (("rpn", 4, 6000, 0.7, 300), ("per_class", 80, 300, 0.3, 300)):
+    for label, n, k, thr, max_keep in (
+        ("rpn", 4, 6000, 0.7, 300), ("per_class", 80, 300, 0.3, 300), ("train", 4, 12000, 0.7, 2000)
+    ):
         boxes = torch.from_numpy(sorted_boxes(rng, n, k, 600.0, 800.0)).to(dev)
         valid = torch.from_numpy(rng.uniform(size=(n, k)) > 0.1).to(dev)
         got = nms_ops.nms_keep_mask(boxes, valid, thr, max_keep)
@@ -194,7 +209,141 @@ def phase_kernel_parity(dev, rng):
             bound_by="bytes" if bytes_moved / HBM_BYTES_PER_S >= ops / F32_FLOPS else "operations",
             shape=[b, h, w, c, p],
         )
+    results.update(roi_backward_parity(dev, rng, fm32, img_h, img_w))
+    check_grad_fn(dev, rng)
+    results["library_conv"] = library_conv_times(dev)
     return results
+
+
+def backward_close(got, want):
+    """K3's tolerance: the kernel makes the plain version's argmax and tie
+    decisions (both recompute the forward's samples bit for bit) but adds
+    into the map with atomics, in an order that changes from run to run,
+    and multiplies each share by its x- and y-weight before adding, where
+    the plain version sums the x-taps first. So each value may differ by
+    1e-5 of the largest; in bf16, after the one cast at the end, also by one
+    bf16 step (2^-7 of the value). Returns (ok, max abs err)."""
+    import torch
+
+    rtol = 2.0**-7 if want.dtype == torch.bfloat16 else 0.0
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    ok = bool((err <= 1e-5 * want.abs().max() + rtol * want.abs()).all())
+    return ok, float(err.max())
+
+
+def roi_tie_counts(fm, rois, norm):
+    """(inside samples, tied inside sample values, outputs) of the RoI
+    backward on these inputs: the work its bound counts."""
+    import torch
+    from fasterrcnn_torch.ops import roi as roi_ops
+
+    b, h, w, c = fm.shape
+    p = rois.shape[1]
+    ys, xs = roi_ops._sample_positions(rois, norm)
+    in_y = (ys >= 0) & (ys <= h - 1)
+    in_x = (xs >= 0) & (xs <= w - 1)
+    inside = in_y[..., :, None] & in_x[..., None, :]  # (B, P, 14, 14)
+    window = roi_ops.crop_and_resize(fm, rois, norm).reshape(b, p, 7, 2, 7, 2, c)
+    tied = (window == window.amax(dim=(3, 5), keepdim=True)).reshape(b, p, 14, 14, c)
+    return (
+        int(inside.sum().item()) * c,
+        int((tied & inside[..., None]).sum().item()),
+        b * p * 49 * c,
+    )
+
+
+def roi_backward_parity(dev, rng, fm32, img_h, img_w):
+    """K3 against its plain version at the train shape: 128 RoIs an image."""
+    import torch
+    from fasterrcnn_torch.ops import roi as roi_ops
+
+    b, h, w, c = fm32.shape
+    p = 128
+    y1 = rng.uniform(-20, img_h * 0.8, (b, p))
+    x1 = rng.uniform(-20, img_w * 0.8, (b, p))
+    rois_np = np.stack(
+        [y1, x1, y1 + rng.uniform(16, img_h * 0.5, (b, p)), x1 + rng.uniform(16, img_w * 0.5, (b, p))], -1
+    )
+    rois = torch.from_numpy(rois_np.astype(np.float32)).to(dev)
+    norm = torch.tensor([[(37 - 1) / img_h, (50 - 1) / img_w]] * b, device=dev)
+    g32 = torch.from_numpy(rng.normal(size=(b, p, 7, 7, c)).astype(np.float32)).to(dev)
+    results = {}
+    for relu in (False, True):
+        base = torch.relu(fm32) if relu else fm32
+        for dtype in (torch.float32, torch.bfloat16):
+            fm, g = base.to(dtype), g32.to(dtype)
+            got = roi_ops.roi_pool_taps_bwd(fm, rois, norm, g)
+            want = roi_ops.roi_pool_taps_bwd_plain(fm, rois, norm, g)
+            torch.cuda.synchronize()
+            check(got.dtype == dtype and got.shape == fm.shape, f"roi_pool_taps_bwd {dtype}: {got.dtype}")
+            ok, err = backward_close(got, want)
+            label = f"roi_bwd_{'f32' if dtype == torch.float32 else 'bf16'}{'_relu' if relu else ''}"
+            print(f"roi_pool_taps_bwd {label} ({b}x{h}x{w}x{c}, {p} RoIs): max_abs_err {err!r} "
+                  f"(max |plain| {float(want.float().abs().max())!r}; tolerance 1e-5 of it"
+                  f"{' + 2^-7 of each value' if dtype == torch.bfloat16 else ''})", flush=True)
+            check(ok, f"roi_pool_taps_bwd {label}: outside tolerance, max_abs_err {err}")
+            ms = cuda_ms(lambda: roi_ops.roi_pool_taps_bwd(fm, rois, norm, g), 20)
+            plain_ms = cuda_ms(lambda: roi_ops.roi_pool_taps_bwd_plain(fm, rois, norm, g), 3)
+            item = fm.element_size()
+            inside, tied, outputs = roi_tie_counts(fm, rois, norm)
+            # Recompute: 9 operations a sample inside the map and 3 maxes an
+            # output; ties: 4 comparisons, 3 adds and a division an output;
+            # each tied sample inside: 2 x-weight and 4 y-weight products and
+            # 4 adds.
+            ops = 9 * inside + 11 * outputs + 10 * tied
+            # Inputs read once (map, cotangent, RoIs, norm), output written once.
+            bytes_moved = 2 * b * h * w * c * item + outputs * item + b * p * 16 + b * 8
+            # The kernel's own floor: it also zeroes and writes an f32 map,
+            # and a bf16 result is cast from it.
+            accumulator_bytes = 2 * b * h * w * c * 4 + (b * h * w * c * 4 if dtype == torch.bfloat16 else 0)
+            results[label] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=1e3 * max(bytes_moved / HBM_BYTES_PER_S, ops / F32_FLOPS),
+                bound_by="bytes" if bytes_moved / HBM_BYTES_PER_S >= ops / F32_FLOPS else "operations",
+                bound_with_f32_accumulator_ms=1e3 * (bytes_moved + accumulator_bytes) / HBM_BYTES_PER_S,
+                tied_inside_samples=tied, shape=[b, h, w, c, p],
+            )
+    return results
+
+
+def check_grad_fn(dev, rng):
+    """On the card, roi_pool_taps of a map that requires grad is
+    differentiable, and its backward goes through the backward kernel."""
+    import torch
+    from fasterrcnn_torch.ops import roi as roi_ops
+
+    fm = torch.from_numpy(rng.normal(size=(2, 12, 16, 256)).astype(np.float32)).to(dev).requires_grad_()
+    rois = torch.tensor([[[10.0, 20.0, 120.0, 150.0]] * 3] * 2, device=dev)
+    norm = torch.tensor([[0.05, 0.06]] * 2, device=dev)
+    before = roi_ops.roi_pool_taps_bwd.launches
+    out = roi_ops.roi_pool_taps(fm, rois, norm)
+    check(out.grad_fn is not None, "roi_pool_taps on the card returned no grad_fn")
+    out.sum().backward()
+    torch.cuda.synchronize()
+    check(roi_ops.roi_pool_taps_bwd.launches == before + 1, "roi_pool_taps backward did not launch K3")
+    check(fm.grad is not None and bool(fm.grad.abs().sum() > 0), "roi_pool_taps backward gave no gradient")
+    print(f"roi_pool_taps grad_fn {type(out.grad_fn).__name__}; backward launched roi_pool_taps_bwd", flush=True)
+
+
+def library_conv_times(dev):
+    """Time of the library call the unported conv kernels (K5, K6) compute:
+    3x3 SAME conv + bias (cuDNN) + ReLU, NHWC (channels_last), at the block-5
+    shape (K5) and the block-2 shape (K6), f32 (TF32 off) and bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    out = {}
+    for label, (b, h, w, c) in (("block5", (4, 38, 50, 512)), ("block2", (4, 304, 400, 128))):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(b, c, h, w, device=dev, dtype=dtype).to(memory_format=torch.channels_last)
+            wt = (torch.randn(c, c, 3, 3, device=dev, dtype=dtype) * 0.02).to(memory_format=torch.channels_last)
+            bias = torch.zeros(c, device=dev, dtype=dtype)
+            ms = cuda_ms(lambda: F.relu(F.conv2d(x, wt, bias, padding=1)), 20)
+            key = f"{label}_{'f32' if dtype == torch.float32 else 'bf16'}"
+            out[key] = {"ms": ms, "shape": [b, h, w, c, c], "gflop": 2 * b * h * w * c * c * 9 / 1e9}
+            print(f"library conv3x3+bias+relu {key} (B,H,W,Cin,Cout)={out[key]['shape']}: {ms!r} ms", flush=True)
+    return out
 
 
 def phase_reference(dev, rng):
@@ -262,6 +411,75 @@ def phase_reference(dev, rng):
     close("detection scores", d_g.scores.cpu()[both], d_c.scores[both], 1e-4)
 
 
+def every_box_config():
+    """The tiny config with every anchor a proposal (no NMS suppression, no
+    size filter, caps above the 720 anchors of the 128x160 canvas) and every
+    anchor and proposal sampled: the boxes a step trains on then do not
+    depend on near-tied scores, which the card and the CPU may order
+    differently in the last bits."""
+    from fasterrcnn_torch.config import AnchorConfig, DetectorConfig, ModelConfig, RPNConfig
+
+    return ModelConfig(
+        anchors=AnchorConfig(areas=(24.0 * 24, 48.0 * 48, 96.0 * 96)),
+        rpn=RPNConfig(pre_nms_train=720, post_nms_train=720, nms_iou_threshold=1.0, min_proposal_side=0.0,
+                      minibatch_size=720, max_positive_fraction=1.0),
+        detector=DetectorConfig(proposal_batch_size=256, positive_fraction=1.0),
+        max_gt_boxes=8,
+    )
+
+
+def phase_reference_train(dev, rng):
+    """One train step's losses and gradients, card vs CPU: same weights,
+    same batch, same draws. Gradients are compared per tensor in relative
+    norm |g_card - g_cpu| / |g_cpu| <= 3e-3: the backbones differ in the last
+    bits (TF32 off), and on the ReLU'd feature map a tie between two samples
+    may be exact on one side only, so a cotangent splits on one side alone."""
+    import torch
+    from fasterrcnn_torch.models import faster_rcnn as frcnn
+
+    cfg = every_box_config()
+    cpu = frcnn.FasterRCNN(cfg)
+    frcnn.init_params(cpu, seed=1)
+    card = frcnn.FasterRCNN(cfg)
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(dev, memory_format=torch.channels_last)
+    grid = frcnn.anchor_grid_for(cfg, 128, 160)
+    images = np.zeros((2, 128, 160, 3), np.uint8)
+    images[:, :64, :80] = rng.integers(0, 255, (2, 64, 80, 3), dtype=np.uint8)
+    gt_boxes = np.zeros((2, 8, 4), np.float32)
+    gt_boxes[0, :2] = [[5, 8, 40, 50], [20, 30, 60, 78]]
+    gt_boxes[1, :1] = [[10, 10, 50, 60]]
+    gt_mask = (gt_boxes[..., 2] > 0).astype(np.float32)
+    host = frcnn.Batch(
+        images=torch.from_numpy(images), image_hw=torch.tensor([[64.0, 80.0]] * 2),
+        gt_boxes=torch.from_numpy(gt_boxes), gt_classes=torch.from_numpy((gt_mask * 7).astype(np.int32)),
+        gt_mask=torch.from_numpy(gt_mask), sample_weight=torch.ones(2),
+    )
+    draws = frcnn.draw_train_uniforms(cfg, grid, 2, torch.Generator().manual_seed(0), "cpu")
+    results = []
+    for model, device in ((cpu, "cpu"), (card, dev)):
+        model.train()
+        batch = frcnn.Batch(*(t.to(device) for t in host))
+        d = frcnn.TrainDraws(*(tuple(u.to(device) for u in pair) for pair in draws))
+        total, losses = frcnn.compute_losses(model, batch, grid, draws=d)
+        total.backward()
+        results.append((
+            [v.item() for v in losses], {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None}
+        ))
+    (cpu_losses, cpu_grads), (card_losses, card_grads) = results
+    print(f"reference train losses: card {card_losses!r}, CPU {cpu_losses!r}", flush=True)
+    for name, a, c in zip(("rpn_class", "rpn_regression", "detector_class", "detector_regression"),
+                          card_losses, cpu_losses):
+        check(c > 0 and abs(a - c) <= 1e-4 * abs(c), f"reference train {name}: card {a} vs CPU {c}")
+    check(card_grads.keys() == cpu_grads.keys() and len(cpu_grads) > 0, "reference train: gradient sets differ")
+    worst = max(
+        (float((card_grads[n] - g).norm() / g.norm().clamp_min(1e-30)), n) for n, g in cpu_grads.items()
+    )
+    print(f"reference train gradients: worst relative norm {worst[0]!r} ({worst[1]}; tolerance 3e-3) "
+          f"over {len(cpu_grads)} tensors", flush=True)
+    check(worst[0] <= 3e-3, f"reference train gradients: {worst[1]} at {worst[0]}")
+
+
 # Real image extents on the 608x800 canvas, all smaller than it.
 MAIN_EXTENTS = ((600, 792), (576, 768), (592, 704), (544, 784))
 
@@ -291,6 +509,7 @@ def check_detections(det, b, max_det, image_hw, label):
 
 
 def phase_main_path(dev, rng, counters, canvas=(608, 800), extents=MAIN_EXTENTS):
+    """The predict path; `counters` are the kernels it must launch."""
     import torch
     from fasterrcnn_torch.config import ModelConfig
     from fasterrcnn_torch.engine import Engine
@@ -333,6 +552,86 @@ def phase_main_path(dev, rng, counters, canvas=(608, 800), extents=MAIN_EXTENTS)
     return engine, engine16, images, image_hw, launches
 
 
+def phase_main_path_train(counters, steps=10):
+    """The default config's train path at full width through Engine."""
+    import torch
+    from fasterrcnn_torch.config import ModelConfig
+    from fasterrcnn_torch.data.pipeline import make_host_batch
+    from fasterrcnn_torch.data.synthetic import SyntheticDataset
+    from fasterrcnn_torch.engine import Engine
+
+    cfg = ModelConfig()
+    t0 = time.perf_counter()
+    engine = Engine(cfg, seed=0)
+    engine16 = Engine(ModelConfig(compute_dtype="bfloat16"), seed=0)
+    print(f"train engines built in {time.perf_counter() - t0:.1f} s", flush=True)
+    batch = make_host_batch(list(SyntheticDataset(num_samples=4, seed=0)), (608, 800), cfg.max_gt_boxes)
+
+    for fn in counters:
+        fn.launches = 0
+    totals = []
+    for i in range(steps):
+        losses = engine.train_step(batch)
+        values = [v.item() for v in losses]
+        check(all(np.isfinite(values)), f"train step {i}: non-finite losses {values}")
+        if i == 0:
+            check(all(v > 0 for v in values), f"train step 0: a loss is not positive: {values}")
+        totals.append(sum(values))
+    print(f"train f32, one batch repeated: total loss by step {totals!r}", flush=True)
+    check(totals[-1] < totals[0], f"train f32: the loss did not fall over {steps} steps: {totals}")
+    stats = engine.train_epoch(SyntheticDataset(num_samples=8, seed=1), batch_size=4, max_steps=2)
+    means = stats.means()
+    print(f"train_epoch f32, 2 steps: {means}", flush=True)
+    check(stats._count == 2 and all(np.isfinite(v) for v in means.values()), f"train_epoch: {means}")
+    values16 = []
+    for _ in range(2):
+        values16.append([v.item() for v in engine16.train_step(batch)])
+    print(f"train bf16, 2 steps: {values16!r}", flush=True)
+    check(all(np.isfinite(values16).ravel()), "train bf16: non-finite losses")
+    check(all(p.dtype == torch.float32 for p in engine16.model.parameters()), "bf16 engine: parameters not f32")
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    print(f"train path launches: {launches}", flush=True)
+    for name, n in launches.items():
+        check(n > 0, f"train path: kernel {name} was never launched")
+    return engine, engine16, batch, launches
+
+
+def phase_timing_train(engine, engine16, batch, card, reps=12):
+    """Warm Engine.train_step calls on the host's batch, each ended by a
+    device synchronize: the host-to-device copy is included."""
+    import torch
+
+    b, ch, cw = batch.images.shape[:3]
+
+    def time_step(eng, label):
+        for _ in range(2):
+            eng.train_step(batch)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            eng.train_step(batch)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        med = statistics.median(times)
+        print(f"Engine.train_step {label}: B={b} {ch}x{cw}, median {med!r} ms/step over {reps} "
+              f"(min {min(times)!r}, max {max(times)!r}), {1e3 * b / med!r} img/s [{card}]", flush=True)
+        return {"median_ms": med, "min_ms": min(times), "max_ms": max(times), "img_per_s": 1e3 * b / med}
+
+    out = {"f32_tf32_off": time_step(engine, "f32 (cuDNN and matmul TF32 off)")}
+    torch.backends.cudnn.allow_tf32 = True
+    out["f32_cudnn_tf32_on"] = time_step(engine, "f32 (cuDNN TF32 on, matmul TF32 off)")
+    torch.backends.cudnn.allow_tf32 = False
+    out["bf16"] = time_step(engine16, "bf16")
+    torch.cuda.reset_peak_memory_stats()
+    out["resident_bytes"] = torch.cuda.memory_allocated()  # weights and optimizer states of both engines
+    engine.train_step(batch)
+    torch.cuda.synchronize()
+    out["f32_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
 def phase_timing(engine, engine16, images, image_hw, card):
     """Warm Engine.predict calls on the host's uint8 batch, each ended by a
     device synchronize: the host-to-device copy of the batch is included."""
@@ -361,6 +660,7 @@ def phase_timing(engine, engine16, images, image_hw, card):
     torch.backends.cudnn.allow_tf32 = False
     out["bf16"] = time_predict(engine16, "bf16")
     torch.cuda.reset_peak_memory_stats()
+    out["resident_bytes"] = torch.cuda.memory_allocated()  # both engines' weights
     engine.predict(images, image_hw)
     torch.cuda.synchronize()
     out["f32_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
@@ -371,11 +671,18 @@ def phase_timing(engine, engine16, images, image_hw, card):
 # patterns its name contains.
 PROFILE_LAYERS = (
     ("nms_keep_mask", ("nms_keep_mask_kernel",)),
+    ("roi_pool_taps_bwd", ("roi_pool_taps_bwd_kernel",)),
     ("roi_pool_taps", ("roi_pool_taps_kernel",)),
     ("host-to-device copy", ("Memcpy HtoD",)),
     ("max pool", ("max_pool",)),
-    ("conv (cuDNN)", ("fprop", "implicit_gemm", "convolve", "winograd", "nchwToNhwc", "nhwcToNchw")),
-    ("matmul (cuBLAS)", ("gemm", "nvjet")),
+    ("conv (cuDNN)", (
+        "fprop", "dgrad", "wgrad", "implicit_gemm", "convolve", "winograd", "nchwToNhwc", "nhwcToNchw",
+    )),
+    # Other GEMMs: cuBLAS's (fc layers, heads), and in the f32 train step also
+    # cuDNN's GEMM-named conv-backward kernels (the complex-f32 ones are its
+    # FFT convolution); top_kernels_ms in the output tells them apart.
+    ("matmul (cuBLAS, and cuDNN GEMMs)", ("gemm", "nvjet")),
+    ("optimizer", ("multi_tensor_apply",)),
     ("sort", ("Sort", "sort", "radix")),
     ("elementwise and small ops", (
         "elementwise", "copy", "Memset", "Memcpy", "reduce", "Reduce", "softmax", "index", "gather",
@@ -384,29 +691,34 @@ PROFILE_LAYERS = (
 )
 
 
-def phase_profile(engine, engine16, images, image_hw, card, reps=3):
-    """Device time by layer over warm Engine.predict calls (torch.profiler,
-    TF32 off), the device's idle share and the kernel launches per call."""
+def phase_profile(calls, card, reps=3):
+    """Device time by layer over warm calls of each entry of `calls` (label
+    -> function; torch.profiler, TF32 off), the device's idle share and the
+    kernel launches per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
-    for label, eng in (("f32", engine), ("bf16", engine16)):
-        eng.predict(images, image_hw)
+    for label, fn in calls.items():
+        fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(reps):
-                eng.predict(images, image_hw)
+                fn()
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0) / reps
-        by_layer, launches = {}, 0
+        by_layer, launches, kernels = {}, 0, []
         for evt in prof.key_averages():
             if evt.device_type != torch.autograd.DeviceType.CUDA or evt.self_device_time_total <= 0:
                 continue
+            if evt.key.startswith("Optimizer."):
+                continue  # torch.optim's annotation: a device range over kernels counted on their own
             layer = next((name for name, pats in PROFILE_LAYERS if any(s in evt.key for s in pats)), "other")
-            by_layer[layer] = by_layer.get(layer, 0.0) + evt.self_device_time_total / 1e3 / reps
+            ms = evt.self_device_time_total / 1e3 / reps
+            by_layer[layer] = by_layer.get(layer, 0.0) + ms
             launches += evt.count
+            kernels.append((ms, layer, evt.key[:90]))
         busy = sum(by_layer.values())
         out[label] = {
             "wall_ms_per_call_profiler_on": wall_ms,
@@ -414,6 +726,7 @@ def phase_profile(engine, engine16, images, image_hw, card, reps=3):
             "device_idle_share": max(0.0, 1.0 - busy / wall_ms) if busy > 0 else "not measured",
             "device_ops_per_call": launches / reps,
             "by_layer_ms": dict(sorted(by_layer.items(), key=lambda kv: -kv[1])),
+            "top_kernels_ms": [[ms, layer, name] for ms, layer, name in sorted(kernels, reverse=True)[:12]],
         }
         print(f"profile {label}: {json.dumps(out[label])} [{card}]", flush=True)
     return out
@@ -451,14 +764,34 @@ def main() -> None:
 
     rng = np.random.default_rng(0)
     parity = phase_kernel_parity(dev, rng)
+    print(json.dumps({"library_conv_ms": parity["library_conv"], "card": card}), flush=True)
     phase_reference(dev, rng)
-    counters = (nms_ops.nms_keep_mask, roi_ops.roi_pool_taps)
-    engine, engine16, images, image_hw, launches = phase_main_path(dev, rng, counters)
+    phase_reference_train(dev, rng)
+    counters = (nms_ops.nms_keep_mask, roi_ops.roi_pool_taps, roi_ops.roi_pool_taps_bwd)
+    # Each path runs, is timed and profiled with only its own engines on
+    # the card, so each peak memory counts that path alone.
+    engine, engine16, images, image_hw, launches = phase_main_path(dev, rng, counters[:2])
     timing = phase_timing(engine, engine16, images, image_hw, card)
     print(json.dumps({"predict_timing": timing, "card": card}), flush=True)
-    phase_profile(engine, engine16, images, image_hw, card)
+    phase_profile({
+        "predict f32": lambda: engine.predict(images, image_hw),
+        "predict bf16": lambda: engine16.predict(images, image_hw),
+    }, card)
+    del engine, engine16
+    torch.cuda.empty_cache()
+    train_engine, train_engine16, batch, train_launches = phase_main_path_train(counters)
+    train_timing = phase_timing_train(train_engine, train_engine16, batch, card)
+    print(json.dumps({"train_timing": train_timing, "card": card}), flush=True)
+    phase_profile({
+        "train f32": lambda: train_engine.train_step(batch),
+        "train bf16": lambda: train_engine16.train_step(batch),
+    }, card)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+
+    def by_path(name):
+        return {"predict": launches.get(name, 0), "train": train_launches[name]}
+
     kernels = [
         {
             "name": "nms_keep_mask",
@@ -469,7 +802,9 @@ def main() -> None:
             **{k: parity["rpn"][k] for k in keys},
             "library_ms": None,
             "shape": parity["rpn"]["shape"],
+            "launches_by_path": by_path("nms_keep_mask"),
             "per_class": parity["per_class"],
+            "train": parity["train"],
         },
         {
             "name": "roi_pool_taps",
@@ -480,7 +815,20 @@ def main() -> None:
             **{k: parity["roi_f32"][k] for k in keys},
             "library_ms": None,
             "shape": parity["roi_f32"]["shape"],
+            "launches_by_path": by_path("roi_pool_taps"),
             "bf16": parity["roi_bf16"],
+        },
+        {
+            "name": "roi_pool_taps_bwd",
+            "route": "cuda",
+            "source": "fasterrcnn_torch/ops/kernels/csrc/roi_pool_taps_bwd.cu",
+            "replaces": "fasterrcnn_tpu/ops/pallas/roi_pallas.py:297",
+            "launches": train_launches["roi_pool_taps_bwd"],
+            **{k: parity["roi_bwd_f32"][k] for k in keys},
+            "library_ms": None,
+            "shape": parity["roi_bwd_f32"]["shape"],
+            "launches_by_path": by_path("roi_pool_taps_bwd"),
+            **{k: parity[k] for k in ("roi_bwd_bf16", "roi_bwd_f32_relu", "roi_bwd_bf16_relu")},
         },
     ]
     print(card, flush=True)

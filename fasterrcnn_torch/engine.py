@@ -1,28 +1,37 @@
-"""Engine: holds the model and per-canvas predict functions (predict subset).
+"""Engine: holds the model, its optimizer and per-canvas programs.
 
-`Engine(model_cfg, seed, device)` builds the model with seeded random
-weights on `device` ("cuda" unless the caller asks for "cpu"); `set_params`
-installs a state_dict (see `utils/weights.py` for one made from the JAX
-package's parameters); `predict` runs a padded canvas batch; `predict_image`
-pads one image into its canvas bucket and returns the reference's per-class
-dict.
+`Engine(model_cfg, seed, device, train_cfg)` builds the model with seeded
+random weights on `device` ("cuda" unless the caller asks for "cpu");
+`set_params` installs a state_dict (see `utils/weights.py` for one made from
+the JAX package's parameters) and restarts the optimizer; `predict` runs a
+padded canvas batch; `predict_image` pads one image into its canvas bucket
+and returns the reference's per-class dict; `train_step` takes one optimizer
+step on a padded batch and `train_epoch` runs one over a dataset.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+import math
+import sys
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from fasterrcnn_torch.config import ModelConfig, select_canvas
+from fasterrcnn_torch.config import ModelConfig, TrainConfig, select_canvas
+from fasterrcnn_torch.data.pipeline import Prefetcher, batched
 from fasterrcnn_torch.models.faster_rcnn import (
+    Batch,
     Detections,
     FasterRCNN,
+    Losses,
+    frozen_parameter_names,
     init_params,
     make_predict_fn,
+    make_train_step,
 )
 from fasterrcnn_torch.utils import postprocess
+from fasterrcnn_torch.utils.stats import TrainingStatistics
 
 
 def resolve_device(device) -> torch.device:
@@ -55,26 +64,194 @@ def pad_to_canvas(
     return images, image_hw
 
 
-class Engine:
-    """Holds the model on one device and its per-canvas predict functions."""
+def parameter_labels(model: FasterRCNN) -> Dict[str, str]:
+    """Optimizer group of each parameter: "frozen" (the backbone's frozen
+    patterns, unless train_all), "decayed" (conv and dense weights) or
+    "plain" (biases)."""
+    frozen = set(frozen_parameter_names(model))
+    return {
+        name: "frozen" if name in frozen else "decayed" if name.endswith("weight") else "plain"
+        for name, _ in model.named_parameters()
+    }
 
-    def __init__(self, model_cfg: ModelConfig = ModelConfig(), seed: int = 0, device="cuda"):
+
+def warmup_cosine_factor(count: int, warmup_steps: int, total_steps: int) -> float:
+    """optax.warmup_cosine_decay_schedule(0, 1, warmup_steps, total_steps) at
+    update `count`: linear warmup, then cosine decay to 0 at total_steps
+    (the warmup counted inside total_steps)."""
+    if count < warmup_steps:
+        return count / warmup_steps
+    decay = total_steps - warmup_steps
+    return 0.5 * (1.0 + math.cos(math.pi * min(count - warmup_steps, decay) / decay))
+
+
+class TrainOptimizer:
+    """The JAX package's optax optimizer on torch parameters.
+
+    Groups as `parameter_labels` gives them: "decayed" with weight decay,
+    "plain" without, "frozen" held out (those parameters do not require
+    grad). When clipnorm > 0, each group's gradients are clipped by that
+    group's own global norm, as optax.clip_by_global_norm inside each
+    multi_transform group does (g * clipnorm / norm when norm >= clipnorm);
+    then torch.optim adds weight_decay * p to the gradient, as
+    optax.add_decayed_weights does before sgd or adam, and updates the
+    parameters in place; then the learning-rate schedule advances.
+    """
+
+    def __init__(self, optimizer: torch.optim.Optimizer, scheduler, clipnorm: float):
+        self.optimizer = optimizer
+        self.scheduler = scheduler
+        self.clipnorm = clipnorm
+
+    def zero_grad(self) -> None:
+        self.optimizer.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        if self.clipnorm > 0:
+            for group in self.optimizer.param_groups:
+                grads = [p.grad for p in group["params"] if p.grad is not None]
+                if not grads:
+                    continue
+                norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+                factor = torch.where(norm < self.clipnorm, 1.0, self.clipnorm / norm)
+                for g in grads:
+                    g.mul_(factor)
+        self.optimizer.step()
+        if self.scheduler is not None:
+            self.scheduler.step()
+
+
+def make_optimizer(
+    model_cfg: ModelConfig, train_cfg: TrainConfig, model: FasterRCNN
+) -> Tuple[TrainOptimizer, Dict[str, str]]:
+    """The optimizer of `train_cfg` over `model`'s parameters, and each
+    parameter's group label. SGD with momentum or Adam; a constant learning
+    rate or optax's warmup-cosine schedule."""
+    labels = parameter_labels(model)
+    params = dict(model.named_parameters())
+    groups = [
+        {"params": [params[n] for n, g in labels.items() if g == "decayed"], "weight_decay": train_cfg.weight_decay},
+        {"params": [params[n] for n, g in labels.items() if g == "plain"], "weight_decay": 0.0},
+    ]
+    lr = train_cfg.learning_rate
+    if train_cfg.optimizer == "adam":
+        opt = torch.optim.Adam(groups, lr=lr, betas=(train_cfg.beta1, train_cfg.beta2), eps=1e-8)
+    elif train_cfg.optimizer == "sgd":
+        opt = torch.optim.SGD(groups, lr=lr, momentum=train_cfg.momentum)
+    else:
+        raise ValueError(f"unknown optimizer {train_cfg.optimizer!r}")
+    scheduler = None
+    if train_cfg.lr_schedule == "cosine":
+        warmup = max(train_cfg.warmup_steps, 1)
+        if train_cfg.total_steps <= warmup:
+            raise ValueError(
+                "lr_schedule='cosine' needs total_steps > max(warmup_steps, 1) "
+                f"(got total_steps={train_cfg.total_steps})"
+            )
+        total = train_cfg.total_steps
+        scheduler = torch.optim.lr_scheduler.LambdaLR(opt, lambda n: warmup_cosine_factor(n, warmup, total))
+    elif train_cfg.lr_schedule != "constant":
+        raise ValueError(f"unknown lr_schedule {train_cfg.lr_schedule!r}")
+    return TrainOptimizer(opt, scheduler, train_cfg.clipnorm), labels
+
+
+class Engine:
+    """Holds the model on one device, its optimizer, the sampling generator
+    and the per-canvas predict and train functions."""
+
+    def __init__(
+        self,
+        model_cfg: ModelConfig = ModelConfig(),
+        seed: int = 0,
+        device="cuda",
+        train_cfg: TrainConfig = TrainConfig(),
+    ):
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
+        self.train_cfg = train_cfg
         model = FasterRCNN(model_cfg)
         init_params(model, seed)
         self.model = model.to(device=self.device, memory_format=torch.channels_last).eval()
+        # Uniforms of the minibatch and proposal sampling, on the device.
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._predict_fns: Dict[Tuple[int, int], callable] = {}
+        self._restart_optimizer()
+
+    def _restart_optimizer(self) -> None:
+        self.optimizer, self.labels = make_optimizer(self.model_cfg, self.train_cfg, self.model)
+        self._train_steps: Dict[Tuple[int, int], callable] = {}
 
     def set_params(self, state_dict) -> None:
-        """Install a full state_dict (no missing or unexpected keys)."""
+        """Install a full state_dict (no missing or unexpected keys) and
+        restart the optimizer, as the JAX package's Engine does."""
         self.model.load_state_dict(state_dict)
+        self._restart_optimizer()
 
     def predict_fn_for(self, canvas_hw: Tuple[int, int]):
         canvas_hw = tuple(canvas_hw)
         if canvas_hw not in self._predict_fns:
             self._predict_fns[canvas_hw] = make_predict_fn(self.model, *canvas_hw)
         return self._predict_fns[canvas_hw]
+
+    def train_step_for(self, canvas_hw: Tuple[int, int]):
+        canvas_hw = tuple(canvas_hw)
+        if canvas_hw not in self._train_steps:
+            self._train_steps[canvas_hw] = make_train_step(self.model, self.optimizer, *canvas_hw)
+        return self._train_steps[canvas_hw]
+
+    def to_device(self, batch) -> Batch:
+        """A padded batch on this engine's device: `batch` is a
+        data/pipeline.HostBatch (numpy) or a Batch."""
+        return Batch(*(torch.as_tensor(getattr(batch, f), device=self.device) for f in Batch._fields))
+
+    def train_step(self, batch) -> Losses:
+        """One optimizer step on a padded batch (HostBatch or Batch; a host
+        batch is copied to the device here). Returns the detached losses,
+        still on the device."""
+        b = self.to_device(batch)
+        step = self.train_step_for(tuple(b.images.shape[1:3]))
+        return step(b, generator=self.generator)
+
+    def train_epoch(
+        self,
+        dataset: Iterable,
+        batch_size: int,
+        stats: Optional[TrainingStatistics] = None,
+        progress: bool = False,
+        max_steps: Optional[int] = None,
+    ) -> TrainingStatistics:
+        """One pass over `dataset` (samples, see data/voc.Sample) in padded
+        canvas batches, assembled in a background thread; at most max_steps
+        steps. The losses are fetched to the host in blocks of steps, not
+        after every step."""
+        stats = stats or TrainingStatistics()
+        batches = Prefetcher(batched(iter(dataset), batch_size, self.model_cfg.max_gt_boxes))
+        pending = []
+        steps = 0
+
+        def flush():
+            if not pending:
+                return
+            rows = torch.stack([torch.stack(list(losses)) for losses in pending]).cpu().numpy()
+            pending.clear()
+            for row in rows:
+                stats.on_training_step_values(row)
+            if progress:
+                print(f"step {steps}: {stats.get_progbar_postfix()}", file=sys.stderr, flush=True)
+
+        try:
+            for hb in batches:
+                if max_steps is not None and steps >= max_steps:
+                    break
+                pending.append(self.train_step(hb))
+                steps += 1
+                if len(pending) >= 32:
+                    flush()
+            flush()
+        finally:
+            batches.close()
+        return stats
 
     def predict(self, images_u8, image_hw, score_threshold: float = 0.05) -> Detections:
         """Padded canvas batch (B, H, W, 3) uint8 + real extents (B, 2)."""

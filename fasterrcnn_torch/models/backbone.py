@@ -2,13 +2,13 @@
 
 A backbone is a frozen spec: feature extractor and pooled-RoI head
 factories, channel/stride/vector-size constants, preprocessing parameters,
-and the feature-map-shape rule.
+the feature-map-shape rule and the parameters that training leaves frozen.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Tuple
 
 import torch
 from torch import nn
@@ -25,8 +25,13 @@ class BackboneSpec:
     preprocessing: PreprocessingParams
     # floor (VGG) vs ceil (ResNet) feature-map extent for an image extent.
     fm_ceil_mode: bool
-    make_feature_extractor: Callable[[], nn.Module]
-    make_head: Callable[[], nn.Module]
+    # Factories take (freeze) / (dropout); freeze is False in from-scratch
+    # mode (ModelConfig.train_all), which lifts the backward cut.
+    make_feature_extractor: Callable[[bool], nn.Module]
+    make_head: Callable[[float], nn.Module]
+    # Regex patterns (re.match) of parameter names frozen during training
+    # unless ModelConfig.train_all.
+    frozen_param_patterns: Tuple[str, ...]
 
     def compute_feature_map_shape(self, image_height: int, image_width: int):
         s = self.feature_pixels

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fasterrcnn_torch.models.layers import Conv2d
 from fasterrcnn_torch.ops import boxes as box_ops
 from fasterrcnn_torch.ops import nms as nms_ops
 
@@ -25,9 +26,9 @@ class RPNHead(nn.Module):
 
     def __init__(self, channels: int = 512, num_anchors: int = 9):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
-        self.objectness = nn.Conv2d(channels, num_anchors, 1)
-        self.deltas = nn.Conv2d(channels, num_anchors * 4, 1)
+        self.conv = Conv2d(channels, channels, 3, padding=1)
+        self.objectness = Conv2d(channels, num_anchors, 1)
+        self.deltas = Conv2d(channels, num_anchors * 4, 1)
 
     def forward(self, feature_map: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = F.relu(self.conv(feature_map.permute(0, 3, 1, 2)))

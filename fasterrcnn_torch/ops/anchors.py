@@ -1,9 +1,9 @@
-"""Anchor grid generation and per-image anchor masks.
+"""Anchor grid generation, per-image anchor masks and RPN target assignment.
 
 The anchor grid is built once per canvas bucket in NumPy; the real image
 occupies the top-left corner of the canvas, and anchors over padding are
-masked at run time from the real image size. RPN target assignment belongs
-to the train step and is not ported yet.
+masked at run time from the real image size. RPN ground truth is assigned on
+the device, over a batch of padded gt boxes (`generate_rpn_targets`).
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from fasterrcnn_torch.config import AnchorConfig
+from fasterrcnn_torch.ops import boxes as box_ops
 
 
 def anchor_sizes(cfg: AnchorConfig = AnchorConfig()) -> np.ndarray:
@@ -111,6 +112,60 @@ def anchor_exists(grid: AnchorGrid, real_fm_height, real_fm_width, device="cpu")
     fh = torch.as_tensor(real_fm_height, device=device)[..., None]
     fw = torch.as_tensor(real_fm_width, device=device)[..., None]
     return (cell_y < fh) & (cell_x < fw)
+
+
+class RPNTargets(NamedTuple):
+    trainable: torch.Tensor  # (B, A) f32: 1 if anchor is a definite pos/neg sample
+    objectness: torch.Tensor  # (B, A) f32: 1 = object, 0 = background/ignored
+    deltas: torch.Tensor  # (B, A, 4) f32: (ty, tx, th, tw) vs assigned gt box
+
+
+def generate_rpn_targets(
+    anchor_centers: torch.Tensor,
+    anchor_corners: torch.Tensor,
+    anchor_valid: torch.Tensor,
+    gt_corners: torch.Tensor,
+    gt_mask: torch.Tensor,
+    object_iou_threshold: float = 0.7,
+    background_iou_threshold: float = 0.3,
+) -> RPNTargets:
+    """RPN ground-truth assignment for a batch, over padded gt boxes.
+
+    anchor_centers / anchor_corners: (A, 4); anchor_valid: (B, A);
+    gt_corners: (B, G, 4) padded; gt_mask: (B, G), 1 for real boxes.
+
+    * anchors crossing the image (invalid) get IoU -1, padded gt columns -2,
+      so a padded box never wins an argmax nor joins the tie test below;
+    * IoU < background threshold => background; >= object threshold => object;
+    * for every real gt box, all valid anchors equal to its best IoU are
+      forced positive (an equality test, kept even for a gt box that
+      overlaps nothing);
+    * each anchor regresses to its best-IoU gt box (first on ties); non-finite
+      deltas (degenerate assignments, masked out in the loss) become 0.
+    """
+    anchor_valid = anchor_valid.bool()
+    gt_real = gt_mask.bool()
+    ious = box_ops.iou_matrix(anchor_corners[None], gt_corners)  # (B, A, G)
+    ious = torch.where(anchor_valid[:, :, None], ious, -1.0)
+    ious = torch.where(gt_real[:, None, :], ious, -2.0)
+
+    max_iou_per_anchor = ious.amax(dim=2)  # (B, A)
+    best_gt_per_anchor = ious.argmax(dim=2)  # the first max, as jnp.argmax
+    max_iou_per_gt = ious.amax(dim=1)  # (B, G)
+    forced = ((ious == max_iou_per_gt[:, None, :]) & gt_real[:, None, :]).any(dim=2)
+    forced = forced & anchor_valid
+
+    label = torch.full_like(best_gt_per_anchor, -1)
+    label = torch.where(max_iou_per_anchor < background_iou_threshold, 0, label)
+    label = torch.where(max_iou_per_anchor >= object_iou_threshold, 1, label)
+    label = torch.where(forced, 1, label)
+
+    trainable = (anchor_valid & (label >= 0)).float()
+    objectness = (label == 1).float()
+    assigned = torch.gather(gt_corners, 1, best_gt_per_anchor[:, :, None].expand(-1, -1, 4))
+    deltas = box_ops.encode_deltas(box_ops.corners_to_centers(assigned), anchor_centers[None])
+    deltas = torch.where(torch.isfinite(deltas), deltas, 0.0)
+    return RPNTargets(trainable=trainable, objectness=objectness, deltas=deltas)
 
 
 def real_feature_map_size(

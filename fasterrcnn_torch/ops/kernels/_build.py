@@ -2,8 +2,9 @@
 
 Each source under `csrc/` is compiled on its own into a shared library with a
 plain C interface, for Hopper (`sm_90a`), at first use. The library's file
-name carries a hash of its source and flags, so an edited source is rebuilt
-and a stale library is never loaded. Builds go to `build/` beside this file,
+name carries a hash of its source, the shared headers (`csrc/*.cuh`) and the
+flags, so an edited source or header is rebuilt and a stale library is never
+loaded. Builds go to `build/` beside this file,
 which `.gitignore` lists.
 
 Nothing here runs at import: the CPU-only test machines import every module
@@ -41,9 +42,10 @@ class Kernel(NamedTuple):
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # Every pointer and the stream are c_void_p, so ctypes never truncates them
-# to 32 bits. Both kernels decide by strict comparisons (IoU > threshold,
-# sample position in range), so neither may contract a*b+c into an FMA: the
-# plain PyTorch versions round each operation.
+# to 32 bits. The kernels decide by strict comparisons (IoU > threshold,
+# sample position in range, argmax ties), so none may contract a*b+c into an
+# FMA: the plain PyTorch versions round each operation, and the RoI backward
+# must recompute the forward's samples bit for bit.
 KERNELS: Dict[str, Kernel] = {
     "nms_keep_mask": Kernel(
         "nms_keep_mask.cu", ("-fmad=false",), "nms_keep_mask_launch",
@@ -52,6 +54,10 @@ KERNELS: Dict[str, Kernel] = {
     "roi_pool_taps": Kernel(
         "roi_pool_taps.cu", ("-fmad=false",), "roi_pool_taps_launch",
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    "roi_pool_taps_bwd": Kernel(
+        "roi_pool_taps_bwd.cu", ("-fmad=false",), "roi_pool_taps_bwd_launch",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     ),
 }
 
@@ -74,7 +80,8 @@ def _command(name: str) -> Tuple[List[str], Path]:
     kernel = KERNELS[name]
     src = CSRC / kernel.source
     flags = list(_COMMON_FLAGS) + list(kernel.flags)
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode()).hexdigest()[:12]
     out = BUILD_DIR / f"lib{name}_{digest}.so"
     return [_nvcc(), *flags, "-o", str(out), str(src)], out
 

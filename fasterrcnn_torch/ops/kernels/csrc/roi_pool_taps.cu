@@ -1,16 +1,9 @@
 // RoI crop + 2x2 max pool (14x14 bilinear samples -> 7x7), for Hopper (sm_90a).
 //
 // Replaces the TPU kernel fasterrcnn_tpu/ops/pallas/roi_pallas.py:
-// _roi_taps_kernel (wrapper roi_pool_taps_pallas, forward only). Same
-// semantics: RoI corners (pixels) are scaled onto the real feature grid by
-// norm = ((fh-1)/img_h, (fw-1)/img_w); 14 sample positions per axis span each
-// RoI inclusively; a sample outside [0, size-1] of the canvas map is 0; a
-// sample inside is bilinear over its two y-taps, which are summed in f32 and,
-// for a bf16 map, rounded to bf16 before the two x-taps, as the TPU kernel
-// rounds its y-interpolated rows; then the max of each 2x2 block of samples.
-// The TPU kernel clamps the low x-tap to [0, W-2]; here the high tap is
-// skipped at pos == size-1 instead, on both axes, which gives the same value
-// (its weight there is exactly 0).
+// _roi_taps_kernel (wrapper roi_pool_taps_pallas, forward only), with the
+// same semantics; the samples are computed in roi_taps_common.cuh, which the
+// backward kernel shares, and each output is the max of a 2x2 block of them.
 //
 // What bounds it on the H100: bytes. At the predict shapes (fm 4x38x50x512,
 // 300 RoIs an image) the output (4*300*49*512 values) is ~8x the map, and the
@@ -30,54 +23,20 @@
 // version's split weight sheets give it, so the output equals the plain
 // version's bit for bit in f32 and in bf16.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "roi_taps_common.cuh"
 
 namespace {
 
-constexpr int kCrop = 14;
-constexpr int kOut = 7;
-constexpr int kThreads = 128;
-
-__device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-// The y-interpolated value, rounded to the map's type.
-__device__ __forceinline__ float round_to(float v, const float*) { return v; }
-__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(v));
-}
+using namespace roi_taps;
 
 template <typename T>
 __global__ void roi_pool_taps_kernel(const T* __restrict__ fm, const float* __restrict__ rois,
                                      const float* __restrict__ norm, T* __restrict__ out,
                                      int h, int w, int c, int p) {
-  // Per sample s along y (index s) and x (index kCrop + s): low tap cell,
-  // low/high tap weights, and whether the sample lies inside the map.
-  __shared__ int lo_cell[2 * kCrop];
-  __shared__ float w_lo[2 * kCrop];
-  __shared__ float w_hi[2 * kCrop];
-  __shared__ bool inside[2 * kCrop];
-
+  __shared__ Samples smp;
   const int roi = blockIdx.x;  // b * p + roi index
   const int b = roi / p;
-  if (threadIdx.x < 2 * kCrop) {
-    const int axis = threadIdx.x / kCrop;  // 0 = y, 1 = x
-    const int s = threadIdx.x % kCrop;
-    const float scale = norm[2 * b + axis];
-    const float lo = rois[4 * roi + axis] * scale;
-    const float hi = rois[4 * roi + 2 + axis] * scale;
-    const float step = static_cast<float>(s) / static_cast<float>(kCrop - 1);
-    const float pos = lo + (hi - lo) * step;
-    const int size = axis == 0 ? h : w;
-    const float cell = floorf(pos);
-    const float frac = pos - cell;
-    inside[threadIdx.x] = pos >= 0.0f && pos <= static_cast<float>(size - 1);
-    lo_cell[threadIdx.x] = inside[threadIdx.x] ? static_cast<int>(cell) : 0;
-    w_lo[threadIdx.x] = 1.0f - frac;
-    w_hi[threadIdx.x] = frac;
-  }
+  sample_positions(smp, rois, norm, roi, b, h, w);
   __syncthreads();
 
   const int ch = blockIdx.y * kThreads + threadIdx.x;
@@ -85,26 +44,12 @@ __global__ void roi_pool_taps_kernel(const T* __restrict__ fm, const float* __re
   const T* map = fm + static_cast<size_t>(b) * h * w * c + ch;
   T* dst = out + static_cast<size_t>(roi) * kOut * kOut * c + ch;
 
-  // y-interpolated value of sample row s at map column x, in the map's type.
-  auto row = [&](int s, int x) -> float {
-    const int y = lo_cell[s];
-    const T* col = map + static_cast<size_t>(x) * c;
-    float v = w_lo[s] * load(col + static_cast<size_t>(y) * w * c);
-    if (y + 1 < h) v = v + w_hi[s] * load(col + static_cast<size_t>(y + 1) * w * c);
-    return round_to(v, map);
-  };
-  auto sample = [&](int s, int q) -> float {
-    if (!inside[s] || !inside[kCrop + q]) return 0.0f;
-    const int x = lo_cell[kCrop + q];
-    float v = w_lo[kCrop + q] * row(s, x);
-    if (x + 1 < w) v = v + w_hi[kCrop + q] * row(s, x + 1);
-    return v;
-  };
-
   for (int py = 0; py < kOut; ++py) {
     for (int px = 0; px < kOut; ++px) {
-      const float a = fmaxf(sample(2 * py, 2 * px), sample(2 * py, 2 * px + 1));
-      const float z = fmaxf(sample(2 * py + 1, 2 * px), sample(2 * py + 1, 2 * px + 1));
+      const float a = fmaxf(sample(smp, map, 2 * py, 2 * px, h, w, c),
+                            sample(smp, map, 2 * py, 2 * px + 1, h, w, c));
+      const float z = fmaxf(sample(smp, map, 2 * py + 1, 2 * px, h, w, c),
+                            sample(smp, map, 2 * py + 1, 2 * px + 1, h, w, c));
       store(dst + static_cast<size_t>(py * kOut + px) * c, fmaxf(a, z));
     }
   }

@@ -6,11 +6,14 @@ package computes it. Every image's feature map spans its padded canvas; RoIs
 norm = ((fh - 1) / img_h, (fw - 1) / img_w), and a sample that falls outside
 the canvas map contributes 0.
 
-`roi_pool_taps` is the kernel wrapper: on a CUDA tensor it launches the
-hand-written kernel (`ops/kernels/csrc/roi_pool_taps.cu`), on a CPU tensor it
-runs `roi_pool_features`, the same function in plain PyTorch. Both take a
-fixed number of padded RoIs; rows of invalid RoIs are garbage that callers
-mask out.
+`roi_pool_taps` is the differentiable entry point (`RoIPoolTaps`): its
+forward launches the hand-written kernel `ops/kernels/csrc/roi_pool_taps.cu`
+on a CUDA tensor and runs `roi_pool_features`, the same function in plain
+PyTorch, on a CPU tensor; its backward is `roi_pool_taps_bwd`, which launches
+`ops/kernels/csrc/roi_pool_taps_bwd.cu` on a CUDA tensor and runs
+`roi_pool_taps_bwd_plain` on a CPU tensor. The feature map alone gets a
+cotangent: RoIs are constants of the train step. All take a fixed number of
+padded RoIs; rows of invalid RoIs are garbage that callers mask out.
 """
 
 from __future__ import annotations
@@ -46,6 +49,21 @@ def _interp_weights(coords: torch.Tensor, size: int) -> tuple[torch.Tensor, torc
     return w_lo, w_hi
 
 
+def _sample_positions(rois: torch.Tensor, norm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, P, S) y and x sample positions on the feature grid."""
+    scale = norm.float()[:, (0, 1, 0, 1)]  # (B, 4) -> (sy, sx, sy, sx)
+    r = rois.float() * scale[:, None, :]
+    # s / (S-1) rounded once to f32, as an f32 division gives it. (PyTorch on
+    # CUDA divides a tensor by a scalar as a product with the reciprocal,
+    # which is an ulp off for some s and moves the sample positions.)
+    steps = torch.tensor(
+        [s / (CROP_SIZE - 1) for s in range(CROP_SIZE)], dtype=torch.float32, device=rois.device
+    )
+    ys = r[..., 0:1] + (r[..., 2:3] - r[..., 0:1]) * steps
+    xs = r[..., 1:2] + (r[..., 3:4] - r[..., 1:2]) * steps
+    return ys, xs
+
+
 def crop_and_resize(feature_map: torch.Tensor, rois: torch.Tensor, norm: torch.Tensor) -> torch.Tensor:
     """Bilinear crop of each RoI to (CROP_SIZE, CROP_SIZE) samples.
 
@@ -61,16 +79,7 @@ def crop_and_resize(feature_map: torch.Tensor, rois: torch.Tensor, norm: torch.T
       which the TPU kernel rounds them.
     """
     _, h, w, _ = feature_map.shape
-    scale = norm.float()[:, (0, 1, 0, 1)]  # (B, 4) -> (sy, sx, sy, sx)
-    r = rois.float() * scale[:, None, :]
-    # s / (S-1) rounded once to f32, as an f32 division gives it. (PyTorch on
-    # CUDA divides a tensor by a scalar as a product with the reciprocal,
-    # which is an ulp off for some s and moves the sample positions.)
-    steps = torch.tensor(
-        [s / (CROP_SIZE - 1) for s in range(CROP_SIZE)], dtype=torch.float32, device=rois.device
-    )
-    ys = r[..., 0:1] + (r[..., 2:3] - r[..., 0:1]) * steps  # (B, P, S)
-    xs = r[..., 1:2] + (r[..., 3:4] - r[..., 1:2]) * steps
+    ys, xs = _sample_positions(rois, norm)  # (B, P, S) each
     wy_lo, wy_hi = _interp_weights(ys, h)  # (B, P, S, H) each
     wx_lo, wx_hi = _interp_weights(xs, w)  # (B, P, S, W) each
     fm = feature_map.float()
@@ -90,31 +99,57 @@ def roi_pool_features(
     return pooled.to(feature_map.dtype)
 
 
-def roi_pool_taps(
-    feature_map: torch.Tensor, rois: torch.Tensor, norm: torch.Tensor
+def roi_pool_taps_bwd_plain(
+    feature_map: torch.Tensor, rois: torch.Tensor, norm: torch.Tensor, g: torch.Tensor
 ) -> torch.Tensor:
-    """RoI crop + pool: (B,H,W,C) f32/bf16, (B,P,4), (B,2) -> (B,P,7,7,C).
+    """Cotangent of `roi_pool_features` with respect to the feature map.
 
-    CPU tensors go to `roi_pool_features`; CUDA tensors launch the kernel.
+    The TPU backward kernel's semantics, in plain PyTorch: the forward's
+    samples are recomputed as `crop_and_resize` computes them; each output's
+    cotangent g (B, P, 7, 7, C) is split equally among the samples of its 2x2
+    window that equal the window's max (all four counted); the shares go
+    through the x-taps and then the y-taps in f32, and the (B, H, W, C)
+    result is cast once to the map's type. (Autograd of the plain forward
+    would round the row cotangent to bf16 at the forward's row rounding.)
     """
+    b, h, w, c = feature_map.shape
+    p = rois.shape[1]
+    window = crop_and_resize(feature_map, rois, norm).reshape(b, p, OUTPUT_SIZE, 2, OUTPUT_SIZE, 2, c)
+    ties = (window == window.amax(dim=(3, 5), keepdim=True)).float()
+    share = g.float().reshape(b, p, OUTPUT_SIZE, 1, OUTPUT_SIZE, 1, c) / ties.sum(dim=(3, 5), keepdim=True)
+    gcrops = (ties * share).reshape(b, p, CROP_SIZE, CROP_SIZE, c)
+    ys, xs = _sample_positions(rois, norm)
+    wy_lo, wy_hi = _interp_weights(ys, h)  # (B, P, S, H) each
+    wx_lo, wx_hi = _interp_weights(xs, w)  # (B, P, S, W) each
+    grows = torch.einsum("bpqw,bpsqc->bpswc", wx_lo, gcrops) + torch.einsum("bpqw,bpsqc->bpswc", wx_hi, gcrops)
+    gfm = torch.einsum("bpsh,bpswc->bhwc", wy_lo, grows) + torch.einsum("bpsh,bpswc->bhwc", wy_hi, grows)
+    return gfm.to(feature_map.dtype)
+
+
+def _check_roi_args(feature_map: torch.Tensor, rois: torch.Tensor, norm: torch.Tensor) -> None:
     if feature_map.dim() != 4 or rois.dim() != 3 or rois.shape[-1] != 4:
         raise ValueError(f"feature_map {tuple(feature_map.shape)} / rois {tuple(rois.shape)}")
-    b, h, w, c = feature_map.shape
+    b = feature_map.shape[0]
     if rois.shape[0] != b or tuple(norm.shape) != (b, 2):
         raise ValueError(f"rois {tuple(rois.shape)} / norm {tuple(norm.shape)} for batch {b}")
     if feature_map.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"feature_map must be float32 or bfloat16, got {feature_map.dtype}")
+    dev = feature_map.device
+    if dev.type not in ("cpu", "cuda") or rois.device != dev or norm.device != dev:
+        raise ValueError(f"feature_map on {dev}, rois on {rois.device}, norm on {norm.device}")
+
+
+def _roi_pool_taps_forward(feature_map: torch.Tensor, rois: torch.Tensor, norm: torch.Tensor) -> torch.Tensor:
+    """The forward wrapper: kernel on a CUDA tensor, plain version on the CPU."""
     if feature_map.device.type == "cpu":
         return roi_pool_features(feature_map, rois, norm)
-    dev = feature_map.device
-    if dev.type != "cuda" or rois.device != dev or norm.device != dev:
-        raise ValueError(f"feature_map on {dev}, rois on {rois.device}, norm on {norm.device}")
+    b, h, w, c = feature_map.shape
     fm = feature_map.contiguous()
     rois = rois.float().contiguous()
     norm = norm.float().contiguous()
     p = rois.shape[1]
-    out = torch.empty((b, p, OUTPUT_SIZE, OUTPUT_SIZE, c), dtype=fm.dtype, device=dev)
-    with torch.cuda.device(dev):
+    out = torch.empty((b, p, OUTPUT_SIZE, OUTPUT_SIZE, c), dtype=fm.dtype, device=fm.device)
+    with torch.cuda.device(fm.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.launch(
             "roi_pool_taps",
@@ -123,6 +158,73 @@ def roi_pool_taps(
         )
     roi_pool_taps.launches += 1
     return out
+
+
+def roi_pool_taps_bwd(
+    feature_map: torch.Tensor, rois: torch.Tensor, norm: torch.Tensor, g: torch.Tensor
+) -> torch.Tensor:
+    """Feature-map cotangent of `roi_pool_taps`: (B,H,W,C) in the map's type.
+
+    CPU tensors go to `roi_pool_taps_bwd_plain`; CUDA tensors launch the
+    kernel, which accumulates into a zeroed f32 map that is then cast to the
+    map's type. g must be a contiguous (B, P, 7, 7, C) tensor of the map's type.
+    """
+    _check_roi_args(feature_map, rois, norm)
+    b, h, w, c = feature_map.shape
+    p = rois.shape[1]
+    if tuple(g.shape) != (b, p, OUTPUT_SIZE, OUTPUT_SIZE, c) or g.dtype != feature_map.dtype:
+        raise ValueError(f"g {tuple(g.shape)} {g.dtype} for feature_map {tuple(feature_map.shape)} "
+                         f"{feature_map.dtype} and {p} RoIs")
+    if g.device != feature_map.device:
+        raise ValueError(f"feature_map on {feature_map.device}, g on {g.device}")
+    if feature_map.device.type == "cpu":
+        return roi_pool_taps_bwd_plain(feature_map, rois, norm, g)
+    if not g.is_contiguous():
+        raise ValueError("g must be contiguous")
+    fm = feature_map.contiguous()
+    rois = rois.float().contiguous()
+    norm = norm.float().contiguous()
+    gfm = torch.zeros((b, h, w, c), dtype=torch.float32, device=fm.device)
+    with torch.cuda.device(fm.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.launch(
+            "roi_pool_taps_bwd",
+            fm.data_ptr(), rois.data_ptr(), norm.data_ptr(), g.data_ptr(), gfm.data_ptr(),
+            b, h, w, c, p, int(fm.dtype == torch.bfloat16), stream,
+        )
+    roi_pool_taps_bwd.launches += 1
+    return gfm.to(fm.dtype)
+
+
+roi_pool_taps_bwd.launches = 0
+
+
+class RoIPoolTaps(torch.autograd.Function):
+    """RoI crop + pool with the hand-written backward; RoIs and norm get no
+    cotangent. Saves its inputs, not its output: the backward recomputes the
+    samples."""
+
+    @staticmethod
+    def forward(ctx, feature_map, rois, norm):
+        ctx.save_for_backward(feature_map, rois, norm)
+        return _roi_pool_taps_forward(feature_map, rois, norm)
+
+    @staticmethod
+    def backward(ctx, g):
+        fm, rois, norm = ctx.saved_tensors
+        return roi_pool_taps_bwd(fm, rois, norm, g.contiguous()), None, None
+
+
+def roi_pool_taps(
+    feature_map: torch.Tensor, rois: torch.Tensor, norm: torch.Tensor
+) -> torch.Tensor:
+    """RoI crop + pool: (B,H,W,C) f32/bf16, (B,P,4), (B,2) -> (B,P,7,7,C).
+
+    Differentiable with respect to the feature map (`RoIPoolTaps`). CPU
+    tensors take the plain versions; CUDA tensors launch the kernels.
+    """
+    _check_roi_args(feature_map, rois, norm)
+    return RoIPoolTaps.apply(feature_map, rois, norm)
 
 
 roi_pool_taps.launches = 0

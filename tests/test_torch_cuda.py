@@ -9,7 +9,13 @@ The tests marked `cuda` skip where torch.cuda.is_available() is false.
 Tolerances: NMS keep-masks are decisions and must be identical. RoI pooling
 must be identical too, in f32 and in bf16: kernel and plain version round
 each tap product and each two-tap sum once, and the bf16 rows before the
-x-taps.
+x-taps. The RoI backward makes the same argmax and tie decisions as its
+plain version (both recompute the forward's samples bit for bit), but adds
+into the map with atomics, in an order that changes from run to run, and
+multiplies each share by its x- and y-weight before adding where the plain
+version adds the x-taps first: in f32 each value may differ by 1e-5 of the
+largest; in bf16, after the one cast at the end, also by one bf16 step
+(2^-7 of the value).
 """
 
 import numpy as np
@@ -57,6 +63,18 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert torch.equal(torch_roi.roi_pool_taps(fm, rois, norm), torch_roi.roi_pool_features(fm, rois, norm))
     assert torch_nms.nms_keep_mask.launches == nms_before
     assert torch_roi.roi_pool_taps.launches == roi_before
+
+
+def test_cpu_backward_takes_the_plain_version_and_counts_no_launch():
+    fm, rois, norm = map(torch.from_numpy, roi_inputs(2, 2, 6, 8, 16, 5, 96.0, 128.0, 6, 8))
+    g = torch.from_numpy(np.random.default_rng(2).normal(size=(2, 5, 7, 7, 16)).astype(np.float32))
+    before = torch_roi.roi_pool_taps_bwd.launches
+    f = fm.clone().requires_grad_()
+    out = torch_roi.roi_pool_taps(f, rois, norm)
+    assert out.grad_fn is not None
+    out.backward(g)
+    assert torch.equal(f.grad, torch_roi.roi_pool_taps_bwd_plain(fm, rois, norm, g))
+    assert torch_roi.roi_pool_taps_bwd.launches == before
 
 
 def taps_reference(fm, rois, norm):
@@ -111,7 +129,10 @@ def test_plain_roi_rounds_as_the_kernel(dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "n,k,thr,max_keep",
-    [(4, 6000, 0.7, 300), (80, 300, 0.3, 300), (2, 12000, 0.7, 2000), (3, 37, 0.5, 40), (5, 1000, 0.5, 0)],
+    [
+        (4, 6000, 0.7, 300), (80, 300, 0.3, 300), (2, 12000, 0.7, 2000), (1, 12000, 0.7, 2000),
+        (3, 37, 0.5, 40), (5, 1000, 0.5, 0),
+    ],
 )
 def test_cuda_nms_kernel_matches_plain(cuda, n, k, thr, max_keep):
     rng = np.random.default_rng(k)
@@ -156,6 +177,56 @@ def test_cuda_roi_kernel_matches_plain(cuda, dtype, shape):
     assert torch.equal(got, want)
 
 
+def assert_backward_close(got, want):
+    """The tolerance of the module docstring."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    rtol = 2.0**-7 if want.dtype == torch.bfloat16 else 0.0
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    bound = 1e-5 * want.abs().max() + rtol * want.abs()
+    assert bool((err <= bound).all()), f"max abs err {float(err.max())}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize(
+    "shape", [(4, 38, 50, 512, 128, 600.0, 800.0, 37, 50), (2, 12, 16, 200, 7, 160.0, 200.0, 10, 12)]
+)
+def test_cuda_roi_backward_kernel_matches_plain(cuda, dtype, relu, shape):
+    """On a ReLU'd map zero windows tie four ways and neighbouring samples
+    tie exactly; both sides must split the cotangent alike."""
+    b, h, w, c, p, img_h, img_w, fh, fw = shape
+    fm, rois, norm = roi_inputs(4, b, h, w, c, p, img_h, img_w, fh, fw)
+    if relu:
+        fm = np.maximum(fm, 0.0)
+    g = np.random.default_rng(5).normal(size=(b, p, 7, 7, c)).astype(np.float32)
+    fm, g = torch.from_numpy(fm).to(cuda, dtype), torch.from_numpy(g).to(cuda, dtype)
+    rois, norm = torch.from_numpy(rois).to(cuda), torch.from_numpy(norm).to(cuda)
+    before = torch_roi.roi_pool_taps_bwd.launches
+    got = torch_roi.roi_pool_taps_bwd(fm, rois, norm, g)
+    want = torch_roi.roi_pool_taps_bwd_plain(fm, rois, norm, g)
+    torch.cuda.synchronize()
+    assert torch_roi.roi_pool_taps_bwd.launches == before + 1
+    assert_backward_close(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_roi_pool_taps_carries_a_gradient_through_the_kernels(cuda):
+    fm, rois, norm = roi_inputs(6, 2, 12, 16, 256, 9, 160.0, 200.0, 10, 12)
+    fm = torch.from_numpy(fm).to(cuda).requires_grad_()
+    rois, norm = torch.from_numpy(rois).to(cuda), torch.from_numpy(norm).to(cuda)
+    g = torch.from_numpy(np.random.default_rng(6).normal(size=(2, 9, 7, 7, 256)).astype(np.float32)).to(cuda)
+    fwd, bwd = torch_roi.roi_pool_taps.launches, torch_roi.roi_pool_taps_bwd.launches
+    out = torch_roi.roi_pool_taps(fm, rois, norm)
+    assert out.grad_fn is not None
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert torch_roi.roi_pool_taps.launches == fwd + 1
+    assert torch_roi.roi_pool_taps_bwd.launches == bwd + 1
+    assert_backward_close(fm.grad, torch_roi.roi_pool_taps_bwd_plain(fm.detach(), rois, norm, g))
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_reject_mixed_devices(cuda):
     boxes = torch.zeros((1, 10, 4), device=cuda)
@@ -164,3 +235,8 @@ def test_cuda_wrappers_reject_mixed_devices(cuda):
     fm = torch.zeros((1, 4, 4, 8), device=cuda)
     with pytest.raises(ValueError):
         torch_roi.roi_pool_taps(fm, torch.zeros((1, 2, 4)), torch.ones((1, 2), device=cuda))
+    rois, norm = torch.zeros((1, 2, 4), device=cuda), torch.ones((1, 2), device=cuda)
+    with pytest.raises(ValueError):
+        torch_roi.roi_pool_taps_bwd(fm, rois, norm, torch.zeros((1, 2, 7, 7, 8)))
+    with pytest.raises(ValueError):
+        torch_roi.roi_pool_taps_bwd(fm, rois, norm, torch.zeros((1, 2, 7, 7, 8), device=cuda).bfloat16())
