@@ -6,20 +6,26 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
   1. card: require CUDA; print the card's name and power limit.
-  2. build: compile every CUDA kernel of the predict and train paths from
-     the sources in the checkout (one nvcc per source, in parallel).
+  2. build: compile every CUDA kernel of the port (K1-K6) from the sources
+     in the checkout (one nvcc per source, in parallel).
   3. kernel parity: each kernel against its plain PyTorch version on the
-     card, at the main paths' shapes: NMS keep-masks identical at the
+     card, at its paths' shapes: NMS keep-masks identical at the
      predict RPN shape (4 x 6000 -> 300), the per-class shape (80 x 300)
-     and the train RPN shape (4 x 12000 -> 2000); RoI crop+pool on a
-     (4, 38, 50, 512) map x 300 RoIs identical in f32 and in bf16 (both
-     round each tap product and each two-tap sum once, and the bf16 rows
-     before the x-taps, so no value may differ); the RoI backward on the
-     same map x 128 RoIs (the train shape), normal and ReLU'd, f32 and
-     bf16, within the tolerance of `backward_close`; a CUDA feature map
-     that requires grad gets a grad_fn from roi_pool_taps and its backward
-     launches the backward kernel. Beside them, the library convolution
-     the unported conv kernels would replace is timed.
+     and the train RPN shape (4 x 12000 -> 2000); RoI crop+pool, taps (K2)
+     and dense weight sheets (K4), on a (4, 38, 50, 512) map x 300 RoIs
+     identical in f32 and in bf16 (each rounds where its TPU kernel rounds,
+     and so does its plain version, so no value may differ), and K2 equal
+     to K4 in f32; the RoI backward on the same map x 128 RoIs (the train
+     shape), normal and ReLU'd, f32 and bf16, within the tolerance of
+     `backward_close`; the conv kernels K5 (blocks 5, 4 and 3:
+     4x38x50x512 -> 512, 4x76x100x512 -> 512, 4x152x200x256 -> 256) and K6
+     (block 2, 4x304x400x128 -> 128, and conv2_1's 64 -> 128), f32 and
+     bf16, with and without ReLU, within `profile_conv.conv_close`; CUDA
+     inputs that
+     require grad get a grad_fn from roi_pool_taps (its backward launches
+     K3) and from both convs (their backward equals the plain version's).
+     Beside each kernel its plain version, and for K5 and K6 the library
+     convolution, are timed.
   4. reference: the tiny config (full-width VGG-16, 128x160 canvas) on the
      card against the same model on the CPU (plain versions), stage by stage
      on identical inputs, then the whole predict; then one train step's
@@ -33,7 +39,14 @@ result line):
      Engine.train_step and Engine.train_epoch, B=4 synthetic 600x800
      samples on the 608x800 canvas: the f32 loss must fall over 10 steps on
      one batch, with all four losses positive at the first step; two steps
-     of train_epoch; bf16 train steps; all three kernels must launch.
+     of train_epoch; bf16 train steps; K1-K3 must launch.
+  5b. the fused RoI op (K4's path): `roi_pool_fused`, the public op, on
+     the predict path's own f32 feature map and RPN proposals; it must
+     launch K4 and equal `roi_pool_fused_plain` and `roi_pool_taps` there,
+     bit for bit.
+  6b. conv A/B (K5's and K6's path): `fasterrcnn_torch.scripts.profile_conv`
+     at --batch 4, bf16: every row timed, K5 and K6 launched (phase 3 holds
+     each kernel against its plain version at each of these shapes).
   7. timing: Engine.predict and Engine.train_step on the host's batch, ms
      per batch and img/s (f32 with TF32 off, f32 with cuDNN TF32 on, bf16),
      and the peak memory of the f32 call. Each kernel's time, with CUDA
@@ -41,8 +54,9 @@ result line):
   8. profile: torch.profiler over warm Engine.predict calls and warm
      Engine.train_step calls, f32 and bf16 with TF32 off: device time by
      layer, idle share, device ops per call.
-Then, on the last lines: the card line, one JSON line of the kernels, and
-{"ok": true, "device": {...}}.
+Each path runs with every kernel's launch count set to 0 just before it and
+read just after. Then, on the last lines: the card line, one JSON line of
+the kernels, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -58,6 +72,18 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
+
+# The conv kernels' parity shapes, (B, H, W, C, Cout): VGG-16 blocks 5, 4
+# and 3 (K5), block 2 and conv2_1 (K6), at the 608x800 canvas. They hold
+# every shape the conv A/B gives each kernel at --batch 4.
+CONV_CASES = (
+    ("conv3x3", "block5", (4, 38, 50, 512, 512)),
+    ("conv3x3", "block4", (4, 76, 100, 512, 512)),
+    ("conv3x3", "block3", (4, 152, 200, 256, 256)),
+    ("conv3x3_im2col", "block2", (4, 304, 400, 128, 128)),
+    ("conv3x3_im2col", "conv2_1", (4, 304, 400, 64, 128)),
+)
 
 
 def fail(msg: str) -> None:
@@ -76,21 +102,6 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0].strip()
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps launches, after one warm call."""
-    import torch
-
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def sorted_boxes(rng, n, k, img_h, img_w):
@@ -148,6 +159,7 @@ def phase_kernel_parity(dev, rng):
     import torch
     from fasterrcnn_torch.ops import nms as nms_ops
     from fasterrcnn_torch.ops import roi as roi_ops
+    from fasterrcnn_torch.scripts.profile_conv import time_ms
 
     results = {}
     for label, n, k, thr, max_keep in (
@@ -162,8 +174,8 @@ def phase_kernel_parity(dev, rng):
         print(f"nms_keep_mask {label} ({n}x{k}, thr {thr}, keep {max_keep}): "
               f"{int(got.sum())} accepts, {mismatches} mask mismatches", flush=True)
         check(mismatches == 0, f"nms_keep_mask {label}: {mismatches} keep-mask entries differ")
-        ms = cuda_ms(lambda: nms_ops.nms_keep_mask(boxes, valid, thr, max_keep), 20)
-        plain_ms = cuda_ms(lambda: nms_ops.nms_keep_mask_plain(boxes, valid, thr, max_keep), 2)
+        ms = time_ms(lambda: nms_ops.nms_keep_mask(boxes, valid, thr, max_keep), 20)
+        plain_ms = time_ms(lambda: nms_ops.nms_keep_mask_plain(boxes, valid, thr, max_keep), 2)
         bytes_moved = n * k * (16 + 1 + 1)
         tests = nms_iou_tests(boxes, valid, got, thr)
         ops = NMS_OPS_PER_TEST * tests + 3 * int(valid.sum().item())
@@ -175,9 +187,25 @@ def phase_kernel_parity(dev, rng):
             accepts=int(got.sum()), iou_tests=tests, shape=[n, k],
         )
 
-    b, h, w, c, p = 4, 38, 50, 512, 300
     img_h, img_w = 600.0, 800.0  # real grid 37 x 50 of the 38 x 50 canvas map
-    fm32 = torch.from_numpy(rng.normal(size=(b, h, w, c)).astype(np.float32)).to(dev)
+    fm32 = torch.from_numpy(rng.normal(size=(4, 38, 50, 512)).astype(np.float32)).to(dev)
+    results.update(roi_forward_parity(dev, rng, fm32, img_h, img_w))
+    results.update(roi_backward_parity(dev, rng, fm32, img_h, img_w))
+    check_grad_fn(dev, rng)
+    results.update(conv_parity(dev))
+    check_conv_grad_fn(dev)
+    return results
+
+
+def roi_forward_parity(dev, rng, fm32, img_h, img_w, p=300):
+    """K2 and K4 against their plain versions, and against each other, at
+    the predict shape: 300 RoIs an image."""
+    import torch
+    from fasterrcnn_torch.ops import roi as roi_ops
+    from fasterrcnn_torch.scripts.profile_conv import time_ms
+
+    b, h, w, c = fm32.shape
+    results = {}
     y1 = rng.uniform(-20, img_h * 0.8, (b, p))
     x1 = rng.uniform(-20, img_w * 0.8, (b, p))
     rois_np = np.stack(
@@ -199,19 +227,40 @@ def phase_kernel_parity(dev, rng):
         print(f"roi_pool_taps {dtype} ({b}x{h}x{w}x{c}, {p} RoIs): max_abs_err {err!r}, "
               f"{mismatches} of {got.numel()} values differ (tolerance: identical)", flush=True)
         check(mismatches == 0, f"roi_pool_taps {dtype}: {mismatches} values differ, max_abs_err {err}")
-        ms = cuda_ms(lambda: roi_ops.roi_pool_taps(fm, rois, norm), 20)
-        plain_ms = cuda_ms(lambda: roi_ops.roi_pool_features(fm, rois, norm), 3)
+        ms = time_ms(lambda: roi_ops.roi_pool_taps(fm, rois, norm), 20)
+        plain_ms = time_ms(lambda: roi_ops.roi_pool_features(fm, rois, norm), 3)
         item = fm.element_size()
         bytes_moved = b * h * w * c * item + b * p * 4 * 4 + b * 2 * 4 + b * p * 49 * c * item
-        results[f"roi_{'f32' if dtype == torch.float32 else 'bf16'}"] = dict(
-            max_abs_err=err, mismatches=mismatches, ms=ms, plain_ms=plain_ms,
+        # K2 and K4 compute one function, so they share its bound.
+        bound = dict(
             bound_ms=1e3 * max(bytes_moved / HBM_BYTES_PER_S, ops / F32_FLOPS),
             bound_by="bytes" if bytes_moved / HBM_BYTES_PER_S >= ops / F32_FLOPS else "operations",
-            shape=[b, h, w, c, p],
         )
-    results.update(roi_backward_parity(dev, rng, fm32, img_h, img_w))
-    check_grad_fn(dev, rng)
-    results["library_conv"] = library_conv_times(dev)
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        results[f"roi_{tag}"] = dict(
+            max_abs_err=err, mismatches=mismatches, ms=ms, plain_ms=plain_ms, **bound, shape=[b, h, w, c, p],
+        )
+
+        fused = roi_ops.roi_pool_fused(fm, rois, norm)
+        fused_want = roi_ops.roi_pool_fused_plain(fm, rois, norm)
+        torch.cuda.synchronize()
+        check(fused.dtype == dtype and fused.shape == got.shape, f"roi_pool_fused {dtype}: {fused.dtype}")
+        err = float((fused.float() - fused_want.float()).abs().max().item())
+        mismatches = int((fused != fused_want).sum().item())
+        vs_taps = float((fused.float() - got.float()).abs().max().item())
+        print(f"roi_pool_fused {dtype} ({b}x{h}x{w}x{c}, {p} RoIs): max_abs_err {err!r}, "
+              f"{mismatches} of {fused.numel()} values differ (tolerance: identical); against roi_pool_taps "
+              f"max_abs_err {vs_taps!r}" + (" (tolerance 1e-5)" if dtype == torch.float32 else
+                                            " (bf16: K4 rounds the x-sum once, K2 each x-tap too)"), flush=True)
+        check(mismatches == 0, f"roi_pool_fused {dtype}: {mismatches} values differ, max_abs_err {err}")
+        if dtype == torch.float32:
+            check(vs_taps <= 1e-5, f"roi_pool_fused vs roi_pool_taps f32: max_abs_err {vs_taps}")
+        results[f"fused_{tag}"] = dict(
+            max_abs_err=err, mismatches=mismatches, vs_taps_max_abs_err=vs_taps,
+            ms=time_ms(lambda: roi_ops.roi_pool_fused(fm, rois, norm), 10),
+            plain_ms=time_ms(lambda: roi_ops.roi_pool_fused_plain(fm, rois, norm), 3),
+            **bound, shape=[b, h, w, c, p],
+        )
     return results
 
 
@@ -257,6 +306,7 @@ def roi_backward_parity(dev, rng, fm32, img_h, img_w):
     """K3 against its plain version at the train shape: 128 RoIs an image."""
     import torch
     from fasterrcnn_torch.ops import roi as roi_ops
+    from fasterrcnn_torch.scripts.profile_conv import time_ms
 
     b, h, w, c = fm32.shape
     p = 128
@@ -283,8 +333,8 @@ def roi_backward_parity(dev, rng, fm32, img_h, img_w):
                   f"(max |plain| {float(want.float().abs().max())!r}; tolerance 1e-5 of it"
                   f"{' + 2^-7 of each value' if dtype == torch.bfloat16 else ''})", flush=True)
             check(ok, f"roi_pool_taps_bwd {label}: outside tolerance, max_abs_err {err}")
-            ms = cuda_ms(lambda: roi_ops.roi_pool_taps_bwd(fm, rois, norm, g), 20)
-            plain_ms = cuda_ms(lambda: roi_ops.roi_pool_taps_bwd_plain(fm, rois, norm, g), 3)
+            ms = time_ms(lambda: roi_ops.roi_pool_taps_bwd(fm, rois, norm, g), 20)
+            plain_ms = time_ms(lambda: roi_ops.roi_pool_taps_bwd_plain(fm, rois, norm, g), 3)
             item = fm.element_size()
             inside, tied, outputs = roi_tie_counts(fm, rois, norm)
             # Recompute: 9 operations a sample inside the map and 3 maxes an
@@ -326,24 +376,82 @@ def check_grad_fn(dev, rng):
     print(f"roi_pool_taps grad_fn {type(out.grad_fn).__name__}; backward launched roi_pool_taps_bwd", flush=True)
 
 
-def library_conv_times(dev):
-    """Time of the library call the unported conv kernels (K5, K6) compute:
-    3x3 SAME conv + bias (cuDNN) + ReLU, NHWC (channels_last), at the block-5
-    shape (K5) and the block-2 shape (K6), f32 (TF32 off) and bf16."""
+def conv_parity(dev):
+    """K5 and K6 against conv3x3_plain (cuDNN on f32 copies, TF32 off) at
+    CONV_CASES, f32 and bf16, with and without ReLU, within `conv_close`;
+    then their times beside the plain version's and the library call's
+    (cuDNN conv + bias + ReLU on channels_last tensors, the A/B's
+    yardstick)."""
     import torch
-    import torch.nn.functional as F
+    from fasterrcnn_torch.ops import conv as conv_ops
+    from fasterrcnn_torch.scripts.profile_conv import conv_close, library_conv, time_ms
 
-    out = {}
-    for label, (b, h, w, c) in (("block5", (4, 38, 50, 512)), ("block2", (4, 304, 400, 128))):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    results = {}
+    for name, label, (b, h, w, c, cout) in CONV_CASES:
+        x32 = torch.randn((b, h, w, c), generator=gen, device=dev)
+        w32 = 0.05 * torch.randn((cout, c, 3, 3), generator=gen, device=dev)
+        b32 = torch.randn((cout,), generator=gen, device=dev)
+        fn = getattr(conv_ops, name)
         for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(b, c, h, w, device=dev, dtype=dtype).to(memory_format=torch.channels_last)
-            wt = (torch.randn(c, c, 3, 3, device=dev, dtype=dtype) * 0.02).to(memory_format=torch.channels_last)
-            bias = torch.zeros(c, device=dev, dtype=dtype)
-            ms = cuda_ms(lambda: F.relu(F.conv2d(x, wt, bias, padding=1)), 20)
-            key = f"{label}_{'f32' if dtype == torch.float32 else 'bf16'}"
-            out[key] = {"ms": ms, "shape": [b, h, w, c, c], "gflop": 2 * b * h * w * c * c * 9 / 1e9}
-            print(f"library conv3x3+bias+relu {key} (B,H,W,Cin,Cout)={out[key]['shape']}: {ms!r} ms", flush=True)
-    return out
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            x, wt, bias = x32.to(dtype), w32.to(dtype), b32.to(dtype)
+            errs = []
+            for relu in (True, False):
+                got = fn(x, wt, bias, relu=relu)
+                want = conv_ops.conv3x3_plain(x, wt, bias, relu=relu)
+                torch.cuda.synchronize()
+                check(got.dtype == dtype and got.shape == (b, h, w, cout), f"{name} {label} {tag}: {got.dtype}")
+                ok, err, peak, steps = conv_close(got, want)
+                errs.append(err)
+                print(f"{name} {label} {tag} relu={relu} {(b, h, w, c, cout)}: max_abs_err {errs[-1]!r} "
+                      f"(max |plain| {peak!r}; tolerance "
+                      + (f"1e-5 of the largest + one bf16 step of the value: {steps!r} steps)"
+                         if dtype == torch.bfloat16 else "1e-4 of the largest)"), flush=True)
+                check(ok, f"{name} {label} {tag} relu={relu}: outside tolerance, max_abs_err {errs[-1]}")
+            reps = 10 if h * w * c * cout < 1e9 else 4
+            item = x.element_size()
+            flops = 2.0 * b * h * w * 9 * c * cout
+            peak_rate = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+            bytes_moved = (b * h * w * (c + cout) + wt.numel() + cout) * item
+            w_cl = wt.contiguous(memory_format=torch.channels_last)
+            row = results[f"{label}_{tag}"] = dict(
+                max_abs_err=max(errs),
+                ms=time_ms(lambda: fn(x, wt, bias), reps),
+                plain_ms=time_ms(lambda: conv_ops.conv3x3_plain(x, wt, bias), 3),
+                bound_ms=1e3 * max(bytes_moved / HBM_BYTES_PER_S, flops / peak_rate),
+                bound_by="bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / peak_rate else "operations",
+                library_ms=time_ms(lambda: library_conv(x, w_cl, bias), 20),
+                shape=[b, h, w, c, cout],
+            )
+            print(f"  {name} {label} {tag}: {row['ms']!r} ms, plain {row['plain_ms']!r} ms, "
+                  f"library {row['library_ms']!r} ms, bound {row['bound_ms']!r} ms", flush=True)
+    return results
+
+
+def check_conv_grad_fn(dev):
+    """On the card, conv3x3 and conv3x3_im2col of inputs that require grad
+    are differentiable, and their backward equals autograd of the plain
+    version (it is that autograd, recomputed): within 1e-4 of the largest."""
+    import torch
+    from fasterrcnn_torch.ops import conv as conv_ops
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    inputs = [torch.randn(s, generator=gen, device=dev) for s in ((2, 12, 16, 64), (96, 64, 3, 3), (96,))]
+    g = torch.randn((2, 12, 16, 96), generator=gen, device=dev)
+    grads = {}
+    for name in ("conv3x3", "conv3x3_im2col", "conv3x3_plain"):
+        fn = getattr(conv_ops, name)
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        out = fn(*leaves)
+        check(out.grad_fn is not None, f"{name} on the card returned no grad_fn")
+        out.backward(g)
+        grads[name] = [t.grad for t in leaves]
+    torch.cuda.synchronize()
+    for name in ("conv3x3", "conv3x3_im2col"):
+        err = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(grads[name], grads["conv3x3_plain"]))
+        print(f"{name} grad_fn: backward against autograd of conv3x3_plain, worst relative max err {err!r}", flush=True)
+        check(err <= 1e-4, f"{name} backward: {err}")
 
 
 def phase_reference(dev, rng):
@@ -508,8 +616,19 @@ def check_detections(det, b, max_det, image_hw, label):
     return int(v.sum())
 
 
+def path_launches(counters, required, label):
+    """Every kernel's launches on the path just run; each of `required`
+    must have launched."""
+    launches = {fn.__name__: fn.launches for fn in counters}
+    print(f"{label} launches: {launches}", flush=True)
+    for name in required:
+        check(launches[name] > 0, f"{label}: kernel {name} was never launched")
+    return launches
+
+
 def phase_main_path(dev, rng, counters, canvas=(608, 800), extents=MAIN_EXTENTS):
-    """The predict path; `counters` are the kernels it must launch."""
+    """The predict path, with every launch count in `counters` set to 0
+    before it; it must launch K1 and K2."""
     import torch
     from fasterrcnn_torch.config import ModelConfig
     from fasterrcnn_torch.engine import Engine
@@ -529,10 +648,7 @@ def phase_main_path(dev, rng, counters, canvas=(608, 800), extents=MAIN_EXTENTS)
     per_image = engine.predict_image(images[0, :h0, :w0], score_threshold=0.0)
     det16 = engine16.predict(images, image_hw, score_threshold=0.0)
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in counters}
-    print(f"main path launches: {launches}", flush=True)
-    for name, n in launches.items():
-        check(n > 0, f"main path: kernel {name} was never launched")
+    launches = path_launches(counters, ("nms_keep_mask", "roi_pool_taps"), "main path")
 
     n05 = check_detections(det05, b, 300, image_hw, "predict f32 @0.05")
     n0 = check_detections(det0, b, 300, image_hw, "predict f32 @0.0")
@@ -553,7 +669,9 @@ def phase_main_path(dev, rng, counters, canvas=(608, 800), extents=MAIN_EXTENTS)
 
 
 def phase_main_path_train(counters, steps=10):
-    """The default config's train path at full width through Engine."""
+    """The default config's train path at full width through Engine, with
+    every launch count in `counters` set to 0 before it; it must launch
+    K1-K3."""
     import torch
     from fasterrcnn_torch.config import ModelConfig
     from fasterrcnn_torch.data.pipeline import make_host_batch
@@ -590,11 +708,65 @@ def phase_main_path_train(counters, steps=10):
     check(all(np.isfinite(values16).ravel()), "train bf16: non-finite losses")
     check(all(p.dtype == torch.float32 for p in engine16.model.parameters()), "bf16 engine: parameters not f32")
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in counters}
-    print(f"train path launches: {launches}", flush=True)
-    for name, n in launches.items():
-        check(n > 0, f"train path: kernel {name} was never launched")
+    launches = path_launches(counters, ("nms_keep_mask", "roi_pool_taps", "roi_pool_taps_bwd"), "train path")
     return engine, engine16, batch, launches
+
+
+def phase_fused_roi_op(engine, images, image_hw, counters):
+    """K4's path: the public op `roi_pool_fused` on the f32 predict path's
+    own feature map and RPN proposals (B=4 on the 608x800 canvas, 300
+    proposals an image), as a user comparing it with `roi_pool_taps` calls
+    it. It must launch K4 and, in f32, equal both its plain version and the
+    taps kernel there, bit for bit."""
+    import torch
+    from fasterrcnn_torch.models import faster_rcnn as frcnn
+    from fasterrcnn_torch.ops import roi as roi_ops
+
+    model, dev = engine.model, engine.device
+    grid = frcnn.anchor_grid_for(model.cfg, *images.shape[1:3])
+    with torch.inference_mode():
+        hw = torch.as_tensor(image_hw, device=dev)
+        fm, props = frcnn.infer_proposals(
+            model, grid, torch.as_tensor(grid.centers, device=dev), torch.as_tensor(images, device=dev), hw
+        )
+        norm = model.roi_norm(hw)
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+        fused = roi_ops.roi_pool_fused(fm, props.boxes, norm)
+        torch.cuda.synchronize()
+        launches = path_launches(counters, ("roi_pool_fused",), "fused RoI op path")
+        plain = roi_ops.roi_pool_fused_plain(fm, props.boxes, norm)
+        taps = roi_ops.roi_pool_taps(fm, props.boxes, norm)
+    check(fm.dtype == torch.float32 and bool(torch.isfinite(fused).all()), f"fused RoI op: {fm.dtype}, non-finite")
+    print(f"fused RoI op on the predict path's map {tuple(fm.shape)} (max |map| {float(fm.abs().max())!r}, "
+          f"max |pooled| {float(fused.abs().max())!r}) and {tuple(props.boxes.shape)} proposals: max_abs_err "
+          f"against roi_pool_fused_plain {float((fused - plain).abs().max())!r}, against roi_pool_taps "
+          f"{float((fused - taps).abs().max())!r} (tolerance: identical to both)", flush=True)
+    check(torch.equal(fused, plain), "fused RoI op: differs from roi_pool_fused_plain")
+    check(torch.equal(fused, taps), "fused RoI op: differs from roi_pool_taps in f32")
+    return launches
+
+
+def phase_conv_ab(counters, card):
+    """K5's and K6's path: the conv A/B entry point at B=4 in bf16, with
+    every launch count set to 0 before it. Every row must carry a time and
+    both kernels must launch."""
+    import torch
+    from fasterrcnn_torch.scripts import profile_conv
+
+    for fn in counters:
+        fn.launches = 0
+    rows = profile_conv.main(["--batch", "4", "--reps", "5"])
+    torch.cuda.synchronize()
+    launches = path_launches(counters, ("conv3x3", "conv3x3_im2col"), "conv A/B path")
+    want = {(name, "library") for name, *_ in profile_conv.SHAPES}
+    want |= {("block5", "conv3x3"), ("block4", "conv3x3"), ("block3", "conv3x3"), ("block2", "im2col")}
+    check({(r["layer"], r["impl"]) for r in rows} == want, f"conv A/B rows: {[(r['layer'], r['impl']) for r in rows]}")
+    for r in rows:
+        check("error" not in r and np.isfinite(r["ms"]) and r["ms"] > 0, f"conv A/B row without a time: {r}")
+    print(json.dumps({"conv_ab": rows, "card": card}), flush=True)
+    return rows, launches
 
 
 def phase_timing_train(engine, engine16, batch, card, reps=12):
@@ -673,6 +845,8 @@ PROFILE_LAYERS = (
     ("nms_keep_mask", ("nms_keep_mask_kernel",)),
     ("roi_pool_taps_bwd", ("roi_pool_taps_bwd_kernel",)),
     ("roi_pool_taps", ("roi_pool_taps_kernel",)),
+    ("roi_pool_fused", ("roi_pool_fused_kernel",)),
+    ("conv (hand-written)", ("conv3x3_kernel", "conv3x3_im2col_kernel")),
     ("host-to-device copy", ("Memcpy HtoD",)),
     ("max pool", ("max_pool",)),
     ("conv (cuDNN)", (
@@ -741,6 +915,7 @@ def main() -> None:
     if not os.path.isdir(os.path.join(root, "fasterrcnn_torch")):
         fail(f"no fasterrcnn_torch package beside {__file__}")
     sys.path.insert(0, root)
+    from fasterrcnn_torch.ops import conv as conv_ops
     from fasterrcnn_torch.ops import nms as nms_ops
     from fasterrcnn_torch.ops import roi as roi_ops
     from fasterrcnn_torch.ops.kernels import _build
@@ -762,15 +937,22 @@ def main() -> None:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
+    counters = (
+        nms_ops.nms_keep_mask, roi_ops.roi_pool_taps, roi_ops.roi_pool_taps_bwd, roi_ops.roi_pool_fused,
+        conv_ops.conv3x3, conv_ops.conv3x3_im2col,
+    )
     rng = np.random.default_rng(0)
+    for fn in counters:
+        fn.launches = 0
     parity = phase_kernel_parity(dev, rng)
-    print(json.dumps({"library_conv_ms": parity["library_conv"], "card": card}), flush=True)
+    torch.cuda.synchronize()
+    parity_launches = {fn.__name__: fn.launches for fn in counters}
     phase_reference(dev, rng)
     phase_reference_train(dev, rng)
-    counters = (nms_ops.nms_keep_mask, roi_ops.roi_pool_taps, roi_ops.roi_pool_taps_bwd)
     # Each path runs, is timed and profiled with only its own engines on
     # the card, so each peak memory counts that path alone.
-    engine, engine16, images, image_hw, launches = phase_main_path(dev, rng, counters[:2])
+    engine, engine16, images, image_hw, launches = phase_main_path(dev, rng, counters)
+    fused_launches = phase_fused_roi_op(engine, images, image_hw, counters)
     timing = phase_timing(engine, engine16, images, image_hw, card)
     print(json.dumps({"predict_timing": timing, "card": card}), flush=True)
     phase_profile({
@@ -786,11 +968,16 @@ def main() -> None:
         "train f32": lambda: train_engine.train_step(batch),
         "train bf16": lambda: train_engine16.train_step(batch),
     }, card)
+    del train_engine, train_engine16
+    torch.cuda.empty_cache()
+    _, conv_launches = phase_conv_ab(counters, card)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    paths = {"predict": launches, "train": train_launches, "fused_roi_op": fused_launches,
+             "conv_ab": conv_launches, "parity": parity_launches}
 
     def by_path(name):
-        return {"predict": launches.get(name, 0), "train": train_launches[name]}
+        return {path: counts[name] for path, counts in paths.items()}
 
     kernels = [
         {
@@ -829,6 +1016,40 @@ def main() -> None:
             "shape": parity["roi_bwd_f32"]["shape"],
             "launches_by_path": by_path("roi_pool_taps_bwd"),
             **{k: parity[k] for k in ("roi_bwd_bf16", "roi_bwd_f32_relu", "roi_bwd_bf16_relu")},
+        },
+        {
+            "name": "roi_pool_fused",
+            "route": "cuda",
+            "source": "fasterrcnn_torch/ops/kernels/csrc/roi_pool_fused.cu",
+            "replaces": "fasterrcnn_tpu/ops/pallas/roi_pallas.py:65",
+            "launches": fused_launches["roi_pool_fused"],
+            **{k: parity["fused_f32"][k] for k in keys},
+            "library_ms": None,
+            "shape": parity["fused_f32"]["shape"],
+            "launches_by_path": by_path("roi_pool_fused"),
+            "bf16": parity["fused_bf16"],
+        },
+        {
+            "name": "conv3x3",
+            "route": "cuda",
+            "source": "fasterrcnn_torch/ops/kernels/csrc/conv3x3.cu",
+            "replaces": "fasterrcnn_tpu/ops/pallas/conv_pallas.py:63",
+            "launches": conv_launches["conv3x3"],
+            **{k: parity["block5_f32"][k] for k in (*keys, "library_ms", "shape")},
+            "launches_by_path": by_path("conv3x3"),
+            "bf16": parity["block5_bf16"],
+            **{label: {"f32": parity[f"{label}_f32"], "bf16": parity[f"{label}_bf16"]} for label in ("block4", "block3")},
+        },
+        {
+            "name": "conv3x3_im2col",
+            "route": "cuda",
+            "source": "fasterrcnn_torch/ops/kernels/csrc/conv3x3_im2col.cu",
+            "replaces": "fasterrcnn_tpu/ops/pallas/conv_pallas.py:229",
+            "launches": conv_launches["conv3x3_im2col"],
+            **{k: parity["block2_f32"][k] for k in (*keys, "library_ms", "shape")},
+            "launches_by_path": by_path("conv3x3_im2col"),
+            "bf16": parity["block2_bf16"],
+            "conv2_1": {"f32": parity["conv2_1_f32"], "bf16": parity["conv2_1_bf16"]},
         },
     ]
     print(card, flush=True)

@@ -125,11 +125,15 @@ class Prefetcher:
             except BaseException as e:  # re-raised on the consumer side
                 self._error = e
             finally:
+                # The end marker waits behind the queued items; only after
+                # close() may it take the place of one.
                 while True:
                     try:
-                        self._queue.put_nowait(self._DONE)
+                        self._queue.put(self._DONE, timeout=0.05)
                         break
                     except queue.Full:
+                        if not self._stop.is_set():
+                            continue
                         try:
                             self._queue.get_nowait()
                         except queue.Empty:

@@ -102,12 +102,9 @@ class FasterRCNN(nn.Module):
         b = logits.shape[0]
         return fm, logits.reshape(b, -1), deltas.reshape(b, -1, 4)
 
-    def detect_rois(self, fm: torch.Tensor, roi_boxes: torch.Tensor, image_hw: torch.Tensor):
-        """RoI pooling + heads over a padded (B, S, 4) box set.
-
-        All images' RoIs run through the heads as one (B*S, ...) stack.
-        Returns (B, S, C) class logits and (B, S, 4*(C-1)) box deltas.
-        """
+    def roi_norm(self, image_hw: torch.Tensor) -> torch.Tensor:
+        """(B, 2) pixel -> feature-grid factors of the RoI ops: (real feature
+        map side - 1) / real image side, per axis."""
         hw = image_hw.float()
         fh, fw = anchor_ops.real_feature_map_size(
             hw[:, 0].to(torch.int32),
@@ -115,8 +112,15 @@ class FasterRCNN(nn.Module):
             self.spec.feature_pixels,
             self.spec.fm_ceil_mode,
         )
-        norm = torch.stack([(fh.float() - 1.0) / hw[:, 0], (fw.float() - 1.0) / hw[:, 1]], dim=1)
-        pooled = roi_ops.roi_pool_taps(fm, roi_boxes, norm)
+        return torch.stack([(fh.float() - 1.0) / hw[:, 0], (fw.float() - 1.0) / hw[:, 1]], dim=1)
+
+    def detect_rois(self, fm: torch.Tensor, roi_boxes: torch.Tensor, image_hw: torch.Tensor):
+        """RoI pooling + heads over a padded (B, S, 4) box set.
+
+        All images' RoIs run through the heads as one (B*S, ...) stack.
+        Returns (B, S, C) class logits and (B, S, 4*(C-1)) box deltas.
+        """
+        pooled = roi_ops.roi_pool_taps(fm, roi_boxes, self.roi_norm(image_hw))
         bsz, s = pooled.shape[0], pooled.shape[1]
         vec = self.roi_head(pooled.reshape(bsz * s, *pooled.shape[2:]))
         class_logits, box_deltas = self.detector_heads(vec)
@@ -161,6 +165,27 @@ def proposal_masks(cfg: ModelConfig, grid, image_hw: torch.Tensor):
     return proposal.float(), train_valid.float()
 
 
+def infer_proposals(model: FasterRCNN, grid, centers: torch.Tensor, images: torch.Tensor, hw: torch.Tensor):
+    """The predict path's first stage: the feature map and the RPN proposals,
+    with the infer caps, of (B,H,W,3) uint8 images with real extents hw (B,2)
+    f32. `centers` are the grid's anchor centers on the images' device."""
+    cfg = model.cfg
+    fm, logits, deltas = model.features_and_rpn(images)
+    props = generate_proposals(
+        logits,
+        deltas,
+        centers,
+        proposal_masks(cfg, grid, hw)[0],
+        hw[:, 0],
+        hw[:, 1],
+        cfg.rpn.pre_nms_infer,
+        cfg.rpn.post_nms_infer,
+        cfg.rpn.nms_iou_threshold,
+        cfg.rpn.min_proposal_side,
+    )
+    return fm, props
+
+
 def make_predict_fn(model: FasterRCNN, canvas_h: int, canvas_w: int):
     """The fixed-shape inference function for one canvas.
 
@@ -189,19 +214,7 @@ def make_predict_fn(model: FasterRCNN, canvas_h: int, canvas_w: int):
         centers = centers_by_device[dev]
         hw = image_hw.float()
 
-        fm, logits, deltas = model.features_and_rpn(images)
-        props = generate_proposals(
-            logits,
-            deltas,
-            centers,
-            proposal_masks(cfg, grid, hw)[0],
-            hw[:, 0],
-            hw[:, 1],
-            cfg.rpn.pre_nms_infer,
-            cfg.rpn.post_nms_infer,
-            cfg.rpn.nms_iou_threshold,
-            cfg.rpn.min_proposal_side,
-        )
+        fm, props = infer_proposals(model, grid, centers, images, hw)
         class_logits, box_deltas = model.detect_rois(fm, props.boxes, hw)
         class_probs = torch.softmax(class_logits, dim=-1)  # (B, S, C)
 

@@ -42,10 +42,11 @@ class Kernel(NamedTuple):
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # Every pointer and the stream are c_void_p, so ctypes never truncates them
-# to 32 bits. The kernels decide by strict comparisons (IoU > threshold,
-# sample position in range, argmax ties), so none may contract a*b+c into an
-# FMA: the plain PyTorch versions round each operation, and the RoI backward
-# must recompute the forward's samples bit for bit.
+# to 32 bits. The NMS and RoI kernels decide by strict comparisons (IoU >
+# threshold, sample position in range, argmax ties), so none of them may
+# contract a*b+c into an FMA: the plain PyTorch versions round each
+# operation, and the RoI backward must recompute the forward's samples bit
+# for bit. The conv kernels decide nothing and may.
 KERNELS: Dict[str, Kernel] = {
     "nms_keep_mask": Kernel(
         "nms_keep_mask.cu", ("-fmad=false",), "nms_keep_mask_launch",
@@ -58,6 +59,18 @@ KERNELS: Dict[str, Kernel] = {
     "roi_pool_taps_bwd": Kernel(
         "roi_pool_taps_bwd.cu", ("-fmad=false",), "roi_pool_taps_bwd_launch",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    "roi_pool_fused": Kernel(
+        "roi_pool_fused.cu", ("-fmad=false",), "roi_pool_fused_launch",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    "conv3x3": Kernel(
+        "conv3x3.cu", (), "conv3x3_launch",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    "conv3x3_im2col": Kernel(
+        "conv3x3_im2col.cu", (), "conv3x3_im2col_launch",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     ),
 }
 

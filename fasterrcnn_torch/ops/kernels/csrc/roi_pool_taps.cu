@@ -20,8 +20,10 @@
 // Build with -fmad=false: the in-range tests are comparisons on positions
 // that must round exactly as the plain PyTorch version rounds them, and each
 // two-tap sum is round(round(w_lo * a) + round(w_hi * b)), as the plain
-// version's split weight sheets give it, so the output equals the plain
-// version's bit for bit in f32 and in bf16.
+// version's split weight sheets give it (in bf16 with the weights, each
+// x-tap product and the x-sum rounded to bf16 too, as roi_taps_common.cuh
+// says), so the output equals the plain version's bit for bit in f32 and in
+// bf16.
 
 #include "roi_taps_common.cuh"
 
@@ -36,7 +38,7 @@ __global__ void roi_pool_taps_kernel(const T* __restrict__ fm, const float* __re
   __shared__ Samples smp;
   const int roi = blockIdx.x;  // b * p + roi index
   const int b = roi / p;
-  sample_positions(smp, rois, norm, roi, b, h, w);
+  sample_positions<T>(smp, rois, norm, roi, b, h, w);
   __syncthreads();
 
   const int ch = blockIdx.y * kThreads + threadIdx.x;

@@ -9,7 +9,10 @@
 // its x-tap weight and then its y-tap weight, to the (up to) four map cells it
 // was interpolated from. The RoIs and norm get no cotangent: proposals are
 // constants of the train step. The bf16 rounding of the forward's
-// y-interpolated rows is passed through as the identity, as on the TPU.
+// y-interpolated rows is passed through as the identity, as on the TPU, and
+// for a bf16 map the shares go through the forward's bf16-rounded tap
+// weights, held in f32, as the TPU kernel scatters them (roi_pallas.py:387,
+// :391, :399).
 //
 // What bounds it on the H100: bytes. At the train shape (fm 4x38x50x512, 128
 // RoIs an image) it reads g (4*128*49*512 values, ~3.3x the map) and the map
@@ -56,7 +59,7 @@ __global__ void roi_pool_taps_bwd_kernel(const T* __restrict__ fm, const float* 
   __shared__ Samples smp;
   const int roi = blockIdx.x;  // b * p + roi index
   const int b = roi / p;
-  sample_positions(smp, rois, norm, roi, b, h, w);
+  sample_positions<T>(smp, rois, norm, roi, b, h, w);
   __syncthreads();
 
   const int ch = blockIdx.y * kThreads + threadIdx.x;

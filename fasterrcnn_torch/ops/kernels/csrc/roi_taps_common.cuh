@@ -7,36 +7,33 @@
 // Semantics: RoI corners (pixels) are scaled onto the real feature grid by
 // norm = ((fh-1)/img_h, (fw-1)/img_w); 14 sample positions per axis span each
 // RoI inclusively; a sample outside [0, size-1] of the canvas map is 0; a
-// sample inside is bilinear over its two y-taps, which are summed in f32 and,
-// for a bf16 map, rounded to bf16 before the two x-taps, as the TPU kernel
-// rounds its y-interpolated rows. The TPU kernel clamps the low x-tap to
-// [0, W-2]; here the high tap is skipped at pos == size-1 instead, on both
-// axes, which gives the same value (its weight there is exactly 0).
+// sample inside is bilinear over its two y-taps, which are summed in f32 and
+// rounded to the map's type, then over its two x-taps. For a bf16 map the
+// rounding follows the TPU kernel (fasterrcnn_tpu/ops/pallas/roi_pallas.py:
+// _roi_taps_kernel): both axes' tap weights are rounded to bf16 (:194,
+// :219-220); a y-tap product of two bf16 values is exact in f32, so the
+// y-sum rounds once in f32 and once to bf16, as its f32-accumulated matmul
+// rounds (:196-202); each x-tap product is rounded to bf16 and so is the
+// two-tap sum, as its bf16 x-taps compute them (:218-221). For f32 every
+// rounding is the f32 operation's own. The TPU kernel clamps the low x-tap
+// to [0, W-2]; here the high tap is skipped at pos == size-1 instead, on
+// both axes, which gives the same value (its weight there is exactly 0).
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "typed_io.cuh"
 
 namespace roi_taps {
+
+using namespace typed_io;
 
 constexpr int kCrop = 14;
 constexpr int kOut = 7;
 constexpr int kThreads = 128;
 
-__device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-// The y-interpolated value, rounded to the map's type.
-__device__ __forceinline__ float round_to(float v, const float*) { return v; }
-__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
 // Per sample s along y (index s) and x (index kCrop + s): low tap cell,
-// low/high tap weights, and whether the sample lies inside the map. One
-// instance per block, in shared memory.
+// low/high tap weights (rounded to the map's type), and whether the sample
+// lies inside the map. One instance per block, in shared memory.
 struct Samples {
   int lo_cell[2 * kCrop];
   float w_lo[2 * kCrop];
@@ -46,6 +43,7 @@ struct Samples {
 
 // Fills `smp` for RoI `roi` of image `b`; threads 0..27 each compute one
 // sample position. The caller synchronises the block afterwards.
+template <typename T>
 __device__ __forceinline__ void sample_positions(Samples& smp, const float* __restrict__ rois,
                                                  const float* __restrict__ norm, int roi, int b,
                                                  int h, int w) {
@@ -62,8 +60,8 @@ __device__ __forceinline__ void sample_positions(Samples& smp, const float* __re
     const float frac = pos - cell;
     smp.inside[threadIdx.x] = pos >= 0.0f && pos <= static_cast<float>(size - 1);
     smp.lo_cell[threadIdx.x] = smp.inside[threadIdx.x] ? static_cast<int>(cell) : 0;
-    smp.w_lo[threadIdx.x] = 1.0f - frac;
-    smp.w_hi[threadIdx.x] = frac;
+    smp.w_lo[threadIdx.x] = round_to<T>(1.0f - frac);
+    smp.w_hi[threadIdx.x] = round_to<T>(frac);
   }
 }
 
@@ -76,7 +74,7 @@ __device__ __forceinline__ float row(const Samples& smp, const T* map, int s, in
   const T* col = map + static_cast<size_t>(x) * c;
   float v = smp.w_lo[s] * load(col + static_cast<size_t>(y) * w * c);
   if (y + 1 < h) v = v + smp.w_hi[s] * load(col + static_cast<size_t>(y + 1) * w * c);
-  return round_to(v, map);
+  return round_to<T>(v);
 }
 
 // The bilinear sample (s along y, q along x); 0 outside the map.
@@ -85,8 +83,10 @@ __device__ __forceinline__ float sample(const Samples& smp, const T* map, int s,
                                         int w, int c) {
   if (!smp.inside[s] || !smp.inside[kCrop + q]) return 0.0f;
   const int x = smp.lo_cell[kCrop + q];
-  float v = smp.w_lo[kCrop + q] * row(smp, map, s, x, h, w, c);
-  if (x + 1 < w) v = v + smp.w_hi[kCrop + q] * row(smp, map, s, x + 1, h, w, c);
+  float v = round_to<T>(smp.w_lo[kCrop + q] * row(smp, map, s, x, h, w, c));
+  if (x + 1 < w) {
+    v = round_to<T>(v + round_to<T>(smp.w_hi[kCrop + q] * row(smp, map, s, x + 1, h, w, c)));
+  }
   return v;
 }
 

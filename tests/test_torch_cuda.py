@@ -8,22 +8,26 @@ with a card and PyTorch alone:
 The tests marked `cuda` skip where torch.cuda.is_available() is false.
 Tolerances: NMS keep-masks are decisions and must be identical. RoI pooling
 must be identical too, in f32 and in bf16: kernel and plain version round
-each tap product and each two-tap sum once, and the bf16 rows before the
-x-taps. The RoI backward makes the same argmax and tie decisions as its
+each tap product and each two-tap sum once, and in bf16 the weights, the
+rows, each x-tap product and the x-sum to bf16 (K2), or the weights, the
+rows and the x-sum (K4). The RoI backward makes the same argmax and tie decisions as its
 plain version (both recompute the forward's samples bit for bit), but adds
 into the map with atomics, in an order that changes from run to run, and
 multiplies each share by its x- and y-weight before adding where the plain
 version adds the x-taps first: in f32 each value may differ by 1e-5 of the
 largest; in bf16, after the one cast at the end, also by one bf16 step
-(2^-7 of the value).
+(2^-7 of the value). The conv kernels (K5, K6) are held to
+`profile_conv.conv_close`, which `chip_smoke.py` uses too.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from fasterrcnn_torch.ops import conv as torch_conv
 from fasterrcnn_torch.ops import nms as torch_nms
 from fasterrcnn_torch.ops import roi as torch_roi
+from fasterrcnn_torch.scripts import profile_conv
 
 
 @pytest.fixture
@@ -77,43 +81,56 @@ def test_cpu_backward_takes_the_plain_version_and_counts_no_launch():
     assert torch_roi.roi_pool_taps_bwd.launches == before
 
 
+def test_cpu_fused_roi_takes_the_plain_version_and_counts_no_launch():
+    fm, rois, norm = map(torch.from_numpy, roi_inputs(7, 2, 6, 8, 40, 5, 96.0, 128.0, 6, 8))
+    before = torch_roi.roi_pool_fused.launches
+    assert torch.equal(torch_roi.roi_pool_fused(fm, rois, norm), torch_roi.roi_pool_fused_plain(fm, rois, norm))
+    assert torch_roi.roi_pool_fused.launches == before
+
+
 def taps_reference(fm, rois, norm):
-    """roi_pool_taps.cu's arithmetic, one sample at a time: each tap product
-    and each two-tap sum rounded once in f32, rows rounded to the map's type
-    before the x-taps, a sample outside the map 0, then the 2x2 max."""
+    """roi_pool_taps.cu's arithmetic, one sample at a time, with r() rounding
+    to the map's type (the identity in f32): tap weights r(1 - frac) and
+    r(frac); each row the f32 sum of its two y-taps, rounded with r; each
+    sample r(r(w_lo * row_lo) + r(w_hi * row_hi)); a sample outside the map
+    0; then the 2x2 max."""
     b, h, w, c = fm.shape
     steps = torch.tensor([s / 13 for s in range(14)], dtype=torch.float32)
     f = fm.float()
+
+    def r(v):
+        return v.to(fm.dtype).float()
+
     out = torch.empty((b, rois.shape[1], 7, 7, c), dtype=fm.dtype)
     for i in range(b):
-        for r in range(rois.shape[1]):
+        for n in range(rois.shape[1]):
             taps = []
             for axis, size in ((0, h), (1, w)):
-                lo, hi = rois[i, r, axis] * norm[i, axis], rois[i, r, 2 + axis] * norm[i, axis]
+                lo, hi = rois[i, n, axis] * norm[i, axis], rois[i, n, 2 + axis] * norm[i, axis]
                 pos = lo + (hi - lo) * steps
                 cell = torch.floor(pos)
                 inside = (pos >= 0) & (pos <= size - 1)
-                taps.append((torch.where(inside, cell, 0).long(), 1.0 - (pos - cell), pos - cell, inside))
+                taps.append((torch.where(inside, cell, 0).long(), r(1.0 - (pos - cell)), r(pos - cell), inside))
             (y0, wy0, wy1, in_y), (x0, wx0, wx1, in_x) = taps
 
             def row(s, x):
                 v = wy0[s] * f[i, y0[s], x]
                 if y0[s] + 1 < h:
                     v = v + wy1[s] * f[i, y0[s] + 1, x]
-                return v.to(fm.dtype).float()
+                return r(v)
 
             def sample(s, q):
                 if not (in_y[s] and in_x[q]):
                     return torch.zeros(c)
-                v = wx0[q] * row(s, x0[q])
+                v = r(wx0[q] * row(s, x0[q]))
                 if x0[q] + 1 < w:
-                    v = v + wx1[q] * row(s, x0[q] + 1)
+                    v = r(v + r(wx1[q] * row(s, x0[q] + 1)))
                 return v
 
             for py in range(7):
                 for px in range(7):
                     pooled = torch.stack([sample(2 * py + a, 2 * px + e) for a in (0, 1) for e in (0, 1)]).amax(0)
-                    out[i, r, py, px] = pooled.to(fm.dtype)
+                    out[i, n, py, px] = pooled.to(fm.dtype)
     return out
 
 
@@ -240,3 +257,73 @@ def test_cuda_wrappers_reject_mixed_devices(cuda):
         torch_roi.roi_pool_taps_bwd(fm, rois, norm, torch.zeros((1, 2, 7, 7, 8)))
     with pytest.raises(ValueError):
         torch_roi.roi_pool_taps_bwd(fm, rois, norm, torch.zeros((1, 2, 7, 7, 8), device=cuda).bfloat16())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "shape", [(4, 38, 50, 512, 300, 600.0, 800.0, 37, 50), (2, 12, 16, 200, 7, 160.0, 200.0, 10, 12)]
+)
+def test_cuda_fused_roi_kernel_matches_plain(cuda, dtype, shape):
+    b, h, w, c, p, img_h, img_w, fh, fw = shape
+    fm, rois, norm = roi_inputs(8, b, h, w, c, p, img_h, img_w, fh, fw)
+    fm = torch.from_numpy(fm).to(cuda, dtype)
+    rois, norm = torch.from_numpy(rois).to(cuda), torch.from_numpy(norm).to(cuda)
+    before = torch_roi.roi_pool_fused.launches
+    got = torch_roi.roi_pool_fused(fm, rois, norm)
+    want = torch_roi.roi_pool_fused_plain(fm, rois, norm)
+    torch.cuda.synchronize()
+    assert torch_roi.roi_pool_fused.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, p, 7, 7, c)
+    assert torch.equal(got, want)
+    if dtype == torch.float32:
+        assert torch.equal(got, torch_roi.roi_pool_taps(fm, rois, norm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize(
+    "kernel,shape",
+    [
+        ("conv3x3", (4, 38, 50, 512, 512)), ("conv3x3", (4, 76, 100, 512, 512)),
+        ("conv3x3", (4, 152, 200, 256, 256)), ("conv3x3", (2, 9, 20, 24, 70)),
+        ("conv3x3_im2col", (2, 76, 100, 128, 128)), ("conv3x3_im2col", (2, 76, 100, 64, 128)),
+        ("conv3x3_im2col", (2, 9, 20, 24, 70)),
+    ],
+)
+def test_cuda_conv_kernels_match_plain(cuda, dtype, relu, kernel, shape):
+    b, h, w, c, cout = shape
+    rng = np.random.default_rng(c + cout)
+    x = torch.from_numpy(rng.normal(size=(b, h, w, c)).astype(np.float32)).to(cuda, dtype)
+    wt = torch.from_numpy((0.05 * rng.normal(size=(cout, c, 3, 3))).astype(np.float32)).to(cuda, dtype)
+    bias = torch.from_numpy(rng.normal(size=(cout,)).astype(np.float32)).to(cuda, dtype)
+    fn = getattr(torch_conv, kernel)
+    before = fn.launches
+    torch.backends.cudnn.allow_tf32 = False
+    got = fn(x, wt, bias, relu=relu)
+    want = torch_conv.conv3x3_plain(x, wt, bias, relu=relu)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    ok, err, _, _ = profile_conv.conv_close(got, want)
+    assert ok, f"max abs err {err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["conv3x3", "conv3x3_im2col"])
+def test_cuda_conv_wrappers_carry_the_plain_gradient(cuda, kernel):
+    rng = np.random.default_rng(3)
+    x, wt, bias = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda)
+                   for s in ((2, 12, 16, 64), (96, 64, 3, 3), (96,)))
+    g = torch.from_numpy(rng.normal(size=(2, 12, 16, 96)).astype(np.float32)).to(cuda)
+    torch.backends.cudnn.allow_tf32 = False
+    grads = []
+    for fn in (getattr(torch_conv, kernel), torch_conv.conv3x3_plain):
+        leaves = [t.clone().requires_grad_() for t in (x, wt, bias)]
+        out = fn(*leaves)
+        assert out.grad_fn is not None
+        out.backward(g)
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

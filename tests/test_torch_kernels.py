@@ -1,14 +1,17 @@
 """The port's kernel functions against the JAX package's Pallas kernels.
 
-On the CPU the wrappers (`nms_keep_mask`, `roi_pool_taps`) run their plain
-PyTorch versions; these are held against the Pallas kernels in interpret
-mode, as the JAX package's own tests run them, and against the NumPy NMS
-oracle. `tests/test_torch_cuda.py` holds each CUDA kernel against its plain
-version on the card.
+On the CPU the wrappers (`nms_keep_mask`, `roi_pool_taps`, `roi_pool_fused`)
+run their plain PyTorch versions; these are held against the Pallas kernels
+in interpret mode, as the JAX package's own tests run them, and against the
+NumPy NMS oracle. `tests/test_torch_cuda.py` holds each CUDA kernel against
+its plain version on the card; `tests/test_torch_conv.py` holds the conv
+kernels' wrappers.
 
 Tolerances: NMS keep-masks are decisions and must be identical. RoI pooling
 in f32 is a 4-tap bilinear sum, so the two formulations differ only in
-summation order: atol 1e-5 on unit-variance maps.
+summation order (and the JAX CPU matmul's FMA use): atol 1e-5 on
+unit-variance maps. In bf16 every product is exact in f32 and each side
+rounds at the TPU kernel's points, so the outputs must be identical.
 """
 
 import jax.numpy as jnp
@@ -18,9 +21,10 @@ import torch
 
 from fasterrcnn_tpu.ops import nms as jax_nms
 from fasterrcnn_tpu.ops.pallas.nms_pallas import nms_keep_mask_pallas
-from fasterrcnn_tpu.ops.pallas.roi_pallas import roi_pool_taps_pallas
+from fasterrcnn_tpu.ops.pallas.roi_pallas import roi_pool_fused_pallas, roi_pool_taps_pallas
 from fasterrcnn_torch.ops import nms as torch_nms
 from fasterrcnn_torch.ops import roi as torch_roi
+from tests.test_torch_cuda import taps_reference
 
 
 def sorted_random_boxes(rng, k, spread=300.0):
@@ -167,13 +171,80 @@ def test_plain_roi_out_of_range_samples_are_zero():
 
 
 def test_plain_roi_bf16_rounds_rows_then_pools():
-    """bf16 maps give bf16 output within bf16 rounding of the f32 result."""
+    """bf16 maps give bf16 output: the tap weights, the y-interpolated rows,
+    each x-tap product and the x-sum round to bf16 (the TPU kernel's points,
+    spelled out one sample at a time by `taps_reference`), then the pool;
+    the output stays within bf16 rounding of the f32 result."""
     fm, rois, norm = roi_case(3)
     f32 = torch_roi.roi_pool_taps(torch.from_numpy(fm), torch.from_numpy(rois), torch.from_numpy(norm))
     fm16 = torch.from_numpy(fm).to(torch.bfloat16)
     b16 = torch_roi.roi_pool_taps(fm16, torch.from_numpy(rois), torch.from_numpy(norm))
     assert b16.dtype == torch.bfloat16
-    ref = torch_roi.roi_pool_taps(fm16.float(), torch.from_numpy(rois), torch.from_numpy(norm))
-    # Inputs equal to bf16 values; rows and output each round once to bf16.
-    np.testing.assert_allclose(b16.float().numpy(), ref.numpy(), rtol=2**-7, atol=2**-7)
+    assert torch.equal(b16, taps_reference(fm16, torch.from_numpy(rois), torch.from_numpy(norm)))
     np.testing.assert_allclose(b16.float().numpy(), f32.numpy(), rtol=2**-6, atol=2**-6)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+def test_plain_roi_bf16_equals_pallas_taps_kernel(seed):
+    """bf16 maps: the TPU taps kernel's rounding points, no value differs."""
+    fm, rois, norm = roi_case(seed)
+    want = roi_pool_taps_pallas(
+        jnp.asarray(fm, jnp.bfloat16), jnp.asarray(rois), jnp.asarray(norm), interpret=True, chunk=2
+    )
+    got = torch_roi.roi_pool_taps(torch.from_numpy(fm).bfloat16(), torch.from_numpy(rois), torch.from_numpy(norm))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("seed,chunk", [(0, 2), (1, 3), (7, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_fused_roi_matches_pallas_fused_kernel(seed, chunk, dtype):
+    """K4's rounding: in f32 within summation order (1e-5); in bf16 equal."""
+    fm, rois, norm = roi_case(seed, c=24)
+    want = roi_pool_fused_pallas(
+        jnp.asarray(fm, dtype), jnp.asarray(rois), jnp.asarray(norm), interpret=True, chunk=chunk
+    )
+    got = torch_roi.roi_pool_fused(torch.from_numpy(fm).to(getattr(torch, dtype)), torch.from_numpy(rois),
+                                   torch.from_numpy(norm))
+    assert got.shape == (2, 6, 7, 7, 24) and got.dtype == getattr(torch, dtype)
+    want = np.asarray(want.astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_fused_and_taps_roi_differ_only_in_the_bf16_x_rounding():
+    """In f32 the two formulations are one function, bit for bit; in bf16
+    K4 rounds the x-sum once where K2 rounds each x-tap product too, so
+    some values differ: by the two product roundings (2^-9 of a tap each)
+    and the sums' own, at most 2^-7 of the map's largest value."""
+    fm, rois, norm = map(torch.from_numpy, roi_case(4))
+    assert torch.equal(torch_roi.roi_pool_fused(fm, rois, norm), torch_roi.roi_pool_taps(fm, rois, norm))
+    fused = torch_roi.roi_pool_fused(fm.bfloat16(), rois, norm).float()
+    taps = torch_roi.roi_pool_taps(fm.bfloat16(), rois, norm).float()
+    diff = (fused - taps).abs()
+    assert 0.05 < (diff > 0).float().mean() < 0.5
+    assert float(diff.max()) <= 2.0**-7 * float(fm.abs().max())
+
+
+def test_plain_fused_roi_out_of_range_rois_are_zero():
+    """RoIs past the real grid sample zeros (`tests/test_roi_pallas.py:67-81`)."""
+    rng = np.random.default_rng(3)
+    fm = torch.from_numpy(rng.normal(size=(1, 16, 16, 8)).astype(np.float32))
+    rois = torch.tensor([[[2.0, 400.0, 10.0, 500.0]]])
+    norm = torch.tensor([[15.0 / 256.0, 15.0 / 256.0]])
+    assert not torch_roi.roi_pool_fused(fm, rois, norm).any()
+    want = roi_pool_fused_pallas(jnp.asarray(fm.numpy()), jnp.asarray(rois.numpy()), jnp.asarray(norm.numpy()),
+                                 interpret=True, chunk=1)
+    np.testing.assert_array_equal(np.asarray(want), 0.0)
+
+
+def test_fused_roi_has_no_gradient():
+    """As the JAX op, which defines no VJP: a map that requires grad raises."""
+    fm, rois, norm = map(torch.from_numpy, roi_case(5))
+    with pytest.raises(RuntimeError):
+        torch_roi.roi_pool_fused(fm.clone().requires_grad_(), rois, norm)
+    with torch.no_grad():
+        out = torch_roi.roi_pool_fused(fm.clone().requires_grad_(), rois, norm)
+    assert out.grad_fn is None
