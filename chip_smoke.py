@@ -7,7 +7,8 @@ Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
   1. card: require CUDA; print the card's name and power limit.
   2. build: compile every CUDA kernel of the port (K1-K6) from the sources
-     in the checkout (one nvcc per source, in parallel).
+     in the checkout (one nvcc per source, in parallel); print the count of
+     HGMMA (tensor-core warpgroup MMA) instructions in each conv library.
   3. kernel parity: each kernel against its plain PyTorch version on the
      card, at its paths' shapes: NMS keep-masks identical at the
      predict RPN shape (4 x 6000 -> 300), the per-class shape (80 x 300)
@@ -20,12 +21,14 @@ result line):
      `backward_close`; the conv kernels K5 (blocks 5, 4 and 3:
      4x38x50x512 -> 512, 4x76x100x512 -> 512, 4x152x200x256 -> 256) and K6
      (block 2, 4x304x400x128 -> 128, and conv2_1's 64 -> 128), f32 and
-     bf16, with and without ReLU, within `profile_conv.conv_close`; CUDA
+     bf16 (bf16 on the tensor cores, f32 on the CUDA cores), with and
+     without ReLU, within `profile_conv.conv_close`, each bf16 case launched
+     twice and required to give the same bits; CUDA
      inputs that
      require grad get a grad_fn from roi_pool_taps (its backward launches
      K3) and from both convs (their backward equals the plain version's).
      Beside each kernel its plain version, and for K5 and K6 the library
-     convolution, are timed.
+     convolution, are timed; K5 and K6 also alone, on operands packed once.
   4. reference: the tiny config (full-width VGG-16, 128x160 canvas) on the
      card against the same model on the CPU (plain versions), stage by stage
      on identical inputs, then the whole predict; then one train step's
@@ -409,23 +412,31 @@ def conv_parity(dev):
                       + (f"1e-5 of the largest + one bf16 step of the value: {steps!r} steps)"
                          if dtype == torch.bfloat16 else "1e-4 of the largest)"), flush=True)
                 check(ok, f"{name} {label} {tag} relu={relu}: outside tolerance, max_abs_err {errs[-1]}")
+                if dtype == torch.bfloat16:  # a ring stage overwritten while wgmma reads it would differ
+                    check(torch.equal(fn(x, wt, bias, relu=relu), got), f"{name} {label} bf16: second launch differs")
             reps = 10 if h * w * c * cout < 1e9 else 4
             item = x.element_size()
             flops = 2.0 * b * h * w * 9 * c * cout
             peak_rate = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
             bytes_moved = (b * h * w * (c + cout) + wt.numel() + cout) * item
             w_cl = wt.contiguous(memory_format=torch.channels_last)
+            operands = conv_ops.kernel_operands(name, x, wt)
             row = results[f"{label}_{tag}"] = dict(
                 max_abs_err=max(errs),
                 ms=time_ms(lambda: fn(x, wt, bias), reps),
+                # The kernel alone, on operands packed once: the wrapper's
+                # call adds the weight packing and the host's own time.
+                kernel_only_ms=time_ms(lambda: conv_ops.launch_kernel(name, *operands, bias, True), reps),
                 plain_ms=time_ms(lambda: conv_ops.conv3x3_plain(x, wt, bias), 3),
                 bound_ms=1e3 * max(bytes_moved / HBM_BYTES_PER_S, flops / peak_rate),
                 bound_by="bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / peak_rate else "operations",
                 library_ms=time_ms(lambda: library_conv(x, w_cl, bias), 20),
                 shape=[b, h, w, c, cout],
+                design="wgmma" if dtype == torch.bfloat16 else "cuda cores f32",
             )
-            print(f"  {name} {label} {tag}: {row['ms']!r} ms, plain {row['plain_ms']!r} ms, "
-                  f"library {row['library_ms']!r} ms, bound {row['bound_ms']!r} ms", flush=True)
+            print(f"  {name} {label} {tag}: {row['ms']!r} ms (kernel alone {row['kernel_only_ms']!r}), "
+                  f"plain {row['plain_ms']!r} ms, library {row['library_ms']!r} ms, bound {row['bound_ms']!r} ms",
+                  flush=True)
     return results
 
 
@@ -846,7 +857,9 @@ PROFILE_LAYERS = (
     ("roi_pool_taps_bwd", ("roi_pool_taps_bwd_kernel",)),
     ("roi_pool_taps", ("roi_pool_taps_kernel",)),
     ("roi_pool_fused", ("roi_pool_fused_kernel",)),
-    ("conv (hand-written)", ("conv3x3_kernel", "conv3x3_im2col_kernel")),
+    ("conv (hand-written)", (
+        "conv3x3_kernel", "conv3x3_im2col_kernel", "conv3x3_bf16_kernel", "conv3x3_im2col_bf16_kernel",
+    )),
     ("host-to-device copy", ("Memcpy HtoD",)),
     ("max pool", ("max_pool",)),
     ("conv (cuDNN)", (
@@ -936,6 +949,9 @@ def main() -> None:
         for line in str(info["log"]).splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
+    hgmma = {name: _build.sass_count(name, "HGMMA") for name in ("conv3x3", "conv3x3_im2col")}
+    print(f"HGMMA instructions (cuobjdump -sass): {hgmma}", flush=True)
+    check(all(n > 0 for n in hgmma.values()), f"a conv library holds no HGMMA: {hgmma}")
 
     counters = (
         nms_ops.nms_keep_mask, roi_ops.roi_pool_taps, roi_ops.roi_pool_taps_bwd, roi_ops.roi_pool_fused,
@@ -1037,6 +1053,7 @@ def main() -> None:
             "launches": conv_launches["conv3x3"],
             **{k: parity["block5_f32"][k] for k in (*keys, "library_ms", "shape")},
             "launches_by_path": by_path("conv3x3"),
+            "hgmma_instructions": hgmma["conv3x3"],
             "bf16": parity["block5_bf16"],
             **{label: {"f32": parity[f"{label}_f32"], "bf16": parity[f"{label}_bf16"]} for label in ("block4", "block3")},
         },
@@ -1048,6 +1065,7 @@ def main() -> None:
             "launches": conv_launches["conv3x3_im2col"],
             **{k: parity["block2_f32"][k] for k in (*keys, "library_ms", "shape")},
             "launches_by_path": by_path("conv3x3_im2col"),
+            "hgmma_instructions": hgmma["conv3x3_im2col"],
             "bf16": parity["block2_bf16"],
             "conv2_1": {"f32": parity["conv2_1_f32"], "bf16": parity["conv2_1_bf16"]},
         },

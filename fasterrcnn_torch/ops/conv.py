@@ -5,12 +5,18 @@ hand-written kernels for the same function, kept, as there, for the conv
 A/B (`fasterrcnn_torch/scripts/profile_conv.py`) against the library conv;
 no model calls them (the backbone's convs are cuDNN's, `models/layers.py`).
 
-  * `conv3x3` launches `ops/kernels/csrc/conv3x3.cu` (K5): a direct conv,
-    the taps visited kx outer, ky inner, as the TPU kernel's nine shifted
-    matmuls.
+  * `conv3x3` launches `ops/kernels/csrc/conv3x3.cu` (K5): the TPU kernel's
+    nine shifted matmuls over one staged, W-padded input window.
   * `conv3x3_im2col` launches `ops/kernels/csrc/conv3x3_im2col.cu` (K6): one
     GEMM of depth 9C over a kx-major patch matrix, the TPU kernel's
     formulation for the C = 64/128 layers.
+
+Each kernel has two paths, chosen by x's dtype: bf16 runs on the tensor
+cores (`wgmma`, weights prepacked by `pack_conv3x3_weights` /
+`pack_conv3x3_im2col_weights`, input channels zero-padded to a multiple of
+8 for 16-byte copies), f32 on the CUDA cores (weights repacked to f32). A
+bf16 x takes bf16 weights and bias: with f32 weights the JAX package's
+`jnp.dot(bf16, f32)` would promote to f32, a different function.
 
 Activations are (B, H, W, C) and weights (Cout, C, 3, 3), the layout
 `nn.Conv2d` holds. Both wrappers run `conv3x3_plain` on a CPU tensor and
@@ -40,6 +46,51 @@ def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool 
     return out.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
+# Tiles of the bf16 kernels (csrc/conv_wgmma.cuh, conv3x3.cu, conv3x3_im2col.cu).
+TILE_N = 128  # output channels a block
+K5_CHUNK = 32  # input channels a K5 stage (one ky, three kx taps)
+K6_CHUNK = 64  # input channels a K6 K-tile (one tap)
+
+
+def _padded_bf16(w: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(Cout, C, 3, 3) as bf16, zero-padded to a multiple of TILE_N output
+    channels and of `chunk` input channels."""
+    cout, c = w.shape[:2]
+    w = w.to(torch.bfloat16)
+    if c % chunk or cout % TILE_N:  # VGG's widths need no padding: no copy
+        w = F.pad(w, (0, 0, 0, 0, 0, -c % chunk, 0, -cout % TILE_N))
+    return w
+
+
+def pack_conv3x3_weights(w: torch.Tensor) -> torch.Tensor:
+    """K5's bf16 B operand: (Cout, C, 3, 3) -> (Cout/128 tiles, 3 ky, C/32
+    chunks, 3 kx, 4 channel groups, 128 output channels, 8 channels), both
+    counts rounded up with zeros. One (tile, ky, chunk) block is a stage's
+    weights in the wgmma K-major layout: 8 channels of one output channel a
+    16-byte row."""
+    wp = _padded_bf16(w, K5_CHUNK)
+    n, cp = wp.shape[0] // TILE_N, wp.shape[1] // K5_CHUNK
+    t = wp.reshape(n, TILE_N, cp, K5_CHUNK // 8, 8, 3, 3)  # tile, co, chunk, group, e, ky, kx
+    return t.permute(0, 5, 2, 6, 3, 1, 4).contiguous()
+
+
+def pack_conv3x3_im2col_weights(w: torch.Tensor) -> torch.Tensor:
+    """K6's bf16 B operand: (Cout, C, 3, 3) -> (Cout/128 tiles, 9 taps, C/64
+    chunks, 8 channel groups, 128 output channels, 8 channels), tap = kx * 3
+    + ky (the patch matrix's kx-major column order), both counts rounded up
+    with zeros; one (tile, tap, chunk) block is a K-tile."""
+    wp = _padded_bf16(w, K6_CHUNK)
+    n, cp = wp.shape[0] // TILE_N, wp.shape[1] // K6_CHUNK
+    t = wp.reshape(n, TILE_N, cp, K6_CHUNK // 8, 8, 3, 3)  # tile, co, chunk, group, e, ky, kx
+    return t.permute(0, 6, 5, 2, 3, 1, 4).reshape(n, 9, cp, K6_CHUNK // 8, TILE_N, 8).contiguous()
+
+
+def pad_channels8(x: torch.Tensor) -> torch.Tensor:
+    """x (B, H, W, C) with C zero-padded to a multiple of 8 (exact: the
+    padded channels meet zero weights)."""
+    return F.pad(x, (0, -x.shape[-1] % 8)) if x.shape[-1] % 8 else x
+
+
 def _check_conv_args(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[1:]) != (x.shape[-1], 3, 3):
         raise ValueError(f"x {tuple(x.shape)} (B,H,W,C) / w {tuple(w.shape)} (Cout,C,3,3)")
@@ -47,13 +98,31 @@ def _check_conv_args(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(f"bias {tuple(b.shape)} for {w.shape[0]} output channels")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.dtype == torch.bfloat16 and (w.dtype, b.dtype) != (torch.bfloat16, torch.bfloat16):
+        raise TypeError(f"bf16 x takes bf16 weights and bias, got {w.dtype} and {b.dtype}")
     dev = x.device
     if dev.type not in ("cpu", "cuda") or w.device != dev or b.device != dev:
         raise ValueError(f"x on {dev}, w on {w.device}, b on {b.device}")
 
 
-def _launch(name: str, x: torch.Tensor, wt: torch.Tensor, b: torch.Tensor, relu: bool) -> torch.Tensor:
-    """Launch a conv kernel on x (B,H,W,C) with its repacked f32 weights."""
+def kernel_operands(name: str, x: torch.Tensor, w: torch.Tensor):
+    """(x, weights) as kernel `name` ("conv3x3" or "conv3x3_im2col") takes
+    them. bf16: x with its channels padded to a multiple of 8, and the packed
+    bf16 weights. f32: x, and the f32 weights as (ky, kx, C, Cout), the TPU
+    kernel's HWIO (K5), or as the (9C, Cout) matrix of rows (kx*3 + ky)*C +
+    c, kx-major as `_im2col_weights` orders the TPU kernel's patch columns
+    (K6)."""
+    if x.dtype == torch.bfloat16:
+        pack = pack_conv3x3_weights if name == "conv3x3" else pack_conv3x3_im2col_weights
+        return pad_channels8(x), pack(w)
+    if name == "conv3x3":
+        return x, w.float().permute(2, 3, 1, 0).contiguous()
+    return x, w.float().permute(3, 2, 1, 0).reshape(9 * w.shape[1], w.shape[0]).contiguous()
+
+
+def launch_kernel(name: str, x: torch.Tensor, wt: torch.Tensor, b: torch.Tensor, relu: bool) -> torch.Tensor:
+    """Launch conv kernel `name` on CUDA operands from `kernel_operands`;
+    counts no launch (the wrappers do). Returns (B,H,W,Cout) in x's type."""
     bsz, h, wd, c = x.shape
     cout = b.shape[0]
     x = x.contiguous()
@@ -71,8 +140,7 @@ def _launch(name: str, x: torch.Tensor, wt: torch.Tensor, b: torch.Tensor, relu:
 def _conv3x3_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool) -> torch.Tensor:
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, b, relu)
-    # (Cout, C, ky, kx) -> (ky, kx, C, Cout), the TPU kernel's HWIO.
-    out = _launch("conv3x3", x, w.float().permute(2, 3, 1, 0).contiguous(), b, relu)
+    out = launch_kernel("conv3x3", *kernel_operands("conv3x3", x, w), b, relu)
     conv3x3.launches += 1
     return out
 
@@ -80,10 +148,7 @@ def _conv3x3_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bo
 def _conv3x3_im2col_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool) -> torch.Tensor:
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, b, relu)
-    # (Cout, C, ky, kx) -> (kx, ky, C, Cout) -> (9C, Cout): kx-major, as
-    # `_im2col_weights` orders the TPU kernel's patch columns.
-    wk = w.float().permute(3, 2, 1, 0).reshape(9 * w.shape[1], w.shape[0]).contiguous()
-    out = _launch("conv3x3_im2col", x, wk, b, relu)
+    out = launch_kernel("conv3x3_im2col", *kernel_operands("conv3x3_im2col", x, w), b, relu)
     conv3x3_im2col.launches += 1
     return out
 

@@ -134,6 +134,16 @@ def build(names=None) -> Dict[str, Dict[str, object]]:
     return result
 
 
+def sass_count(name: str, opcode: str) -> int:
+    """How many instructions of the built library of one kernel are `opcode`
+    (e.g. HGMMA, the tensor cores' warpgroup MMA), from `cuobjdump -sass`."""
+    build([name])
+    _, out = _command(name)
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(out)], capture_output=True, text=True, check=True).stdout
+    return sum(1 for line in sass.splitlines() if f" {opcode}." in line or f" {opcode} " in line)
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of one kernel, built on first use."""
     with _lock:

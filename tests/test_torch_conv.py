@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from fasterrcnn_tpu.ops.pallas import conv_pallas
 from fasterrcnn_torch.ops import conv as torch_conv
@@ -126,3 +127,125 @@ def test_profile_conv_runs_on_the_cpu(capsys):
     assert [(r["layer"], r["impl"]) for r in rows] == [("block5", "library"), ("block5", "conv3x3")]
     for r in rows:
         assert r["device"] == "cpu" and r["batch"] == 1 and r["ms"] > 0 and r["mfu"] is None
+
+
+# The bf16 kernels' host-side geometry. On the card K5 and K6 run bf16 on the
+# tensor cores with weights packed by `pack_conv3x3_weights` /
+# `pack_conv3x3_im2col_weights`; the kernels themselves run only there
+# (`tests/test_torch_cuda.py`). Here the packing is held to the OIHW weights
+# bit for bit, and an f32 replay of each kernel's GEMM (the rows it computes,
+# the window offsets of its taps, its stage order, its channel padding) is
+# held to `conv3x3_plain`: the sums differ from cuDNN's only in order, so
+# within 1e-5 of the largest value.
+
+PACKINGS = {
+    "conv3x3": (torch_conv.pack_conv3x3_weights, torch_conv.K5_CHUNK),
+    "conv3x3_im2col": (torch_conv.pack_conv3x3_im2col_weights, torch_conv.K6_CHUNK),
+}
+
+
+def unpack(kernel, packed):
+    """Packed B operand -> (Cout_p, C_p, 3, 3), the inverse of the packing."""
+    n_tiles, chunk_dims = packed.shape[0], packed.shape[1:-2]
+    if kernel == "conv3x3":  # tile, ky, chunk, kx, group, co, e
+        t = packed.permute(0, 5, 2, 4, 6, 1, 3)
+    else:  # tile, tap = kx*3 + ky, chunk, group, co, e
+        t = packed.reshape(n_tiles, 3, 3, *chunk_dims[1:], *packed.shape[-2:]).permute(0, 5, 3, 4, 6, 2, 1)
+    n, co, chunks, groups, e = t.shape[:5]
+    return t.reshape(n * co, chunks * groups * e, 3, 3)
+
+
+@pytest.mark.parametrize("kernel", sorted(PACKINGS))
+@pytest.mark.parametrize("c,cout", [(3, 64), (24, 70), (64, 128), (512, 512)])
+def test_bf16_weight_packing_round_trips(kernel, c, cout):
+    pack, chunk = PACKINGS[kernel]
+    w = torch.from_numpy(np.random.default_rng(c + cout).normal(size=(cout, c, 3, 3)).astype(np.float32))
+    packed = pack(w)
+    cp, np_ = -(-c // chunk) * chunk, -(-cout // torch_conv.TILE_N) * torch_conv.TILE_N
+    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    assert packed.numel() == np_ * cp * 9
+    back = unpack(kernel, packed)
+    assert back.shape == (np_, cp, 3, 3)
+    assert torch.equal(back[:cout, :c], w.to(torch.bfloat16))
+    assert not back[cout:].any() and not back[:, c:].any()
+
+
+def replay_k5(x, w, b, relu):
+    """conv3x3.cu's bf16 GEMM in f32: rows are the positions of the image
+    padded to width W + 2 and flattened; stage (ky, chunk of 32 channels)
+    reads the padded input at row offset ky*(W+2) + kx for its three kx
+    taps; the pad-column rows are dropped at the end."""
+    bsz, h, wd, _ = x.shape
+    packed = torch_conv.pack_conv3x3_weights(w).float()  # tile, ky, chunk, kx, group, co, e
+    n_tiles, _, chunks = packed.shape[:3]
+    kc, wp = torch_conv.K5_CHUNK, wd + 2
+    x8 = torch_conv.pad_channels8(x.float())
+    assert x8.shape[-1] % 8 == 0 and x8.shape[-1] <= chunks * kc
+    xp = F.pad(x8, (0, chunks * kc - x8.shape[-1], 1, 1, 1, 1))  # zero ring + channel padding
+    flat = F.pad(xp.reshape(bsz, (h + 2) * wp, -1), (0, 0, 0, 2))  # the last row's kx shifts
+    acc = torch.zeros(bsz, h * wp, n_tiles * torch_conv.TILE_N)
+    for ky in range(3):
+        for chunk in range(chunks):
+            for kx in range(3):
+                off = ky * wp + kx
+                a = flat[:, off:off + h * wp, chunk * kc:(chunk + 1) * kc]
+                bmat = packed[:, ky, chunk, kx].permute(1, 3, 0, 2).reshape(kc, -1)
+                acc += a @ bmat
+    out = acc.reshape(bsz, h, wp, -1)[:, :, :wd, : w.shape[0]] + b.float()
+    return torch.relu(out) if relu else out
+
+
+def replay_k6(x, w, b, relu):
+    """conv3x3_im2col.cu's bf16 GEMM in f32: rows are the output pixels;
+    K-tile (tap = kx*3 + ky, chunk of 64 channels) gathers each pixel's input
+    at (y + ky - 1, x + kx - 1), zero outside the image."""
+    bsz, h, wd, _ = x.shape
+    packed = torch_conv.pack_conv3x3_im2col_weights(w).float()  # tile, tap, chunk, group, co, e
+    n_tiles, _, chunks = packed.shape[:3]
+    kc = torch_conv.K6_CHUNK
+    x8 = torch_conv.pad_channels8(x.float())
+    xp = F.pad(x8, (0, chunks * kc - x8.shape[-1], 1, 1, 1, 1))
+    acc = torch.zeros(bsz, h * wd, n_tiles * torch_conv.TILE_N)
+    for tap in range(9):
+        kx, ky = divmod(tap, 3)
+        for chunk in range(chunks):
+            a = xp[:, ky:ky + h, kx:kx + wd, chunk * kc:(chunk + 1) * kc].reshape(bsz, h * wd, kc)
+            acc += a @ packed[:, tap, chunk].permute(1, 3, 0, 2).reshape(kc, -1)
+    out = acc.reshape(bsz, h, wd, -1)[..., : w.shape[0]] + b.float()
+    return torch.relu(out) if relu else out
+
+
+@pytest.mark.parametrize("replay", [replay_k5, replay_k6])
+@pytest.mark.parametrize("shape", [(2, 9, 20, 24, 70), (1, 6, 7, 64, 128), (1, 5, 4, 3, 130), (1, 4, 6, 40, 8)])
+def test_bf16_kernel_geometry_replays_the_conv(replay, shape):
+    """Inputs are bf16 values held in f32, so the packing's cast is exact and
+    the replay must equal the plain f32 conv up to summation order."""
+    b, h, w, c, cout = shape
+    rng = np.random.default_rng(sum(shape))
+    x, wt, bias = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).bfloat16().float()
+                   for s in ((b, h, w, c), (cout, c, 3, 3), (cout,)))
+    for relu in (True, False):
+        want = torch_conv.conv3x3_plain(x, wt, bias, relu=relu)
+        got = replay(x, wt, bias, relu)
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("kernel", ["conv3x3", "conv3x3_im2col"])
+def test_bf16_x_with_f32_weights_raises(kernel):
+    x, w, b = to_torch(*case((1, 5, 7, 16), 16, 32, (10, 11, 12), jnp.float32))
+    fn = getattr(torch_conv, kernel)
+    with pytest.raises(TypeError):
+        fn(x.bfloat16(), w, b.bfloat16())
+    with pytest.raises(TypeError):
+        fn(x.bfloat16(), w.bfloat16(), b)
+
+
+@pytest.mark.parametrize("kernel", ["conv3x3", "conv3x3_im2col"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_three_channel_input_runs_on_the_cpu(kernel, dtype):
+    """VGG's conv1_1 (C = 3, which the bf16 kernels pad to 8 channels)."""
+    x, w, b = (t.to(dtype) for t in to_torch(*case((1, 6, 9, 3), 3, 64, (13, 14, 15), jnp.float32)))
+    got = getattr(torch_conv, kernel)(x, w, b)
+    assert got.dtype == dtype and got.shape == (1, 6, 9, 64)
+    assert torch.equal(got, torch_conv.conv3x3_plain(x, w, b))

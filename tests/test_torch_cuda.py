@@ -27,6 +27,7 @@ import torch
 from fasterrcnn_torch.ops import conv as torch_conv
 from fasterrcnn_torch.ops import nms as torch_nms
 from fasterrcnn_torch.ops import roi as torch_roi
+from fasterrcnn_torch.ops.kernels import _build
 from fasterrcnn_torch.scripts import profile_conv
 
 
@@ -290,6 +291,11 @@ def test_cuda_fused_roi_kernel_matches_plain(cuda, dtype, shape):
         ("conv3x3", (4, 152, 200, 256, 256)), ("conv3x3", (2, 9, 20, 24, 70)),
         ("conv3x3_im2col", (2, 76, 100, 128, 128)), ("conv3x3_im2col", (2, 76, 100, 64, 128)),
         ("conv3x3_im2col", (2, 9, 20, 24, 70)),
+        # Ragged and edge shapes: C = 3 and 40 (padded to 8-channel groups),
+        # Cout = 200 (a part tile), W = 400 (a padded row of 402 positions,
+        # wider than a 256-row tile), B = 1.
+        ("conv3x3", (1, 7, 11, 3, 64)), ("conv3x3", (1, 5, 400, 40, 200)),
+        ("conv3x3_im2col", (1, 7, 11, 3, 64)), ("conv3x3_im2col", (1, 5, 400, 40, 200)),
     ],
 )
 def test_cuda_conv_kernels_match_plain(cuda, dtype, relu, kernel, shape):
@@ -308,6 +314,16 @@ def test_cuda_conv_kernels_match_plain(cuda, dtype, relu, kernel, shape):
     assert got.dtype == want.dtype and got.shape == want.shape
     ok, err, _, _ = profile_conv.conv_close(got, want)
     assert ok, f"max abs err {err}"
+    # No atomics: a second launch must give the same bits (a stage of the
+    # bf16 kernels' ring overwritten while wgmma reads it would not).
+    assert torch.equal(fn(x, wt, bias, relu=relu), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["conv3x3", "conv3x3_im2col"])
+def test_cuda_conv_libraries_run_bf16_on_the_tensor_cores(cuda, kernel):
+    """The built library holds warpgroup MMA instructions (HGMMA in SASS)."""
+    assert _build.sass_count(kernel, "HGMMA") > 0
 
 
 @pytest.mark.cuda
