@@ -10,9 +10,13 @@ result line):
      in the checkout (one nvcc per source, in parallel); print the count of
      HGMMA (tensor-core warpgroup MMA) instructions in each conv library.
   3. kernel parity: each kernel against its plain PyTorch version on the
-     card, at its paths' shapes: NMS keep-masks identical at the
-     predict RPN shape (4 x 6000 -> 300), the per-class shape (80 x 300)
-     and the train RPN shape (4 x 12000 -> 2000); RoI crop+pool, taps (K2)
+     card, at its paths' shapes: NMS keep-masks identical, and identical
+     again on a second launch, at the cases of
+     `fasterrcnn_torch.scripts.profile_nms`: the predict RPN shape
+     (4 x 6000 -> 300), the per-class shape (80 x 300), the train RPN shape
+     (4 x 12000 -> 2000) on spread boxes and, as `train_scene`, on boxes
+     piled onto a few objects (accepts stall below max_keep), each with its
+     mask scratch and peak memory; RoI crop+pool, taps (K2)
      and dense weight sheets (K4), on a (4, 38, 50, 512) map x 300 RoIs
      identical in f32 and in bf16 (each rounds where its TPU kernel rounds,
      and so does its plain version, so no value may differ), and K2 equal
@@ -107,15 +111,6 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def sorted_boxes(rng, n, k, img_h, img_w):
-    """(n, k, 4) boxes in descending-score order, spread over an image."""
-    cy = rng.uniform(0, img_h, (n, k))
-    cx = rng.uniform(0, img_w, (n, k))
-    h = rng.uniform(16, 300, (n, k))
-    w = rng.uniform(16, 300, (n, k))
-    return np.stack([cy - h / 2, cx - w / 2, cy + h / 2, cx + w / 2], -1).astype(np.float32)
-
-
 def nms_iou_tests(boxes, valid, keep, iou_threshold: float) -> int:
     """IoU tests the greedy scan makes on these inputs: each accept i tests
     every later valid box that no earlier accept has suppressed.
@@ -161,22 +156,31 @@ def roi_inside_samples(rois, norm, h: int, w: int) -> int:
 def phase_kernel_parity(dev, rng):
     import torch
     from fasterrcnn_torch.ops import nms as nms_ops
-    from fasterrcnn_torch.ops import roi as roi_ops
+    from fasterrcnn_torch.scripts import profile_nms
     from fasterrcnn_torch.scripts.profile_conv import time_ms
 
     results = {}
-    for label, n, k, thr, max_keep in (
-        ("rpn", 4, 6000, 0.7, 300), ("per_class", 80, 300, 0.3, 300), ("train", 4, 12000, 0.7, 2000)
-    ):
-        boxes = torch.from_numpy(sorted_boxes(rng, n, k, 600.0, 800.0)).to(dev)
-        valid = torch.from_numpy(rng.uniform(size=(n, k)) > 0.1).to(dev)
+    for label, (n, k, thr, max_keep, layout) in profile_nms.CASES.items():
+        # The clustered case has a generator of its own, so the phases after
+        # this one draw the same inputs with or without it.
+        boxes_np, valid_np = profile_nms.case_inputs(rng if layout == "spread" else np.random.default_rng(5), label)
+        boxes, valid = torch.from_numpy(boxes_np).to(dev), torch.from_numpy(valid_np).to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
         got = nms_ops.nms_keep_mask(boxes, valid, thr, max_keep)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - resident
         want = nms_ops.nms_keep_mask_plain(boxes, valid, thr, max_keep)
+        again = nms_ops.nms_keep_mask(boxes, valid, thr, max_keep)
         torch.cuda.synchronize()
         mismatches = int((got != want).sum().item())
-        print(f"nms_keep_mask {label} ({n}x{k}, thr {thr}, keep {max_keep}): "
-              f"{int(got.sum())} accepts, {mismatches} mask mismatches", flush=True)
+        print(f"nms_keep_mask {label} ({n}x{k}, {layout} boxes, thr {thr}, keep {max_keep}): "
+              f"{int(got.sum())} accepts, {mismatches} mask mismatches (tolerance: identical); "
+              f"mask scratch {nms_ops.mask_bytes(n, k)} bytes, peak device memory of the call {peak} bytes "
+              f"(torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated()})", flush=True)
         check(mismatches == 0, f"nms_keep_mask {label}: {mismatches} keep-mask entries differ")
+        check(torch.equal(again, got), f"nms_keep_mask {label}: a second launch gave other bits")
         ms = time_ms(lambda: nms_ops.nms_keep_mask(boxes, valid, thr, max_keep), 20)
         plain_ms = time_ms(lambda: nms_ops.nms_keep_mask_plain(boxes, valid, thr, max_keep), 2)
         bytes_moved = n * k * (16 + 1 + 1)
@@ -187,7 +191,7 @@ def phase_kernel_parity(dev, rng):
             max_abs_err=float(mismatches), ms=ms, plain_ms=plain_ms,
             bound_ms=1e3 * max(bytes_moved / HBM_BYTES_PER_S, ops / F32_FLOPS),
             bound_by="bytes" if bytes_moved / HBM_BYTES_PER_S >= ops / F32_FLOPS else "operations",
-            accepts=int(got.sum()), iou_tests=tests, shape=[n, k],
+            accepts=int(got.sum()), iou_tests=tests, shape=[n, k], boxes=layout, peak_bytes=peak,
         )
 
     img_h, img_w = 600.0, 800.0  # real grid 37 x 50 of the 38 x 50 canvas map
@@ -853,7 +857,7 @@ def phase_timing(engine, engine16, images, image_hw, card):
 # Layer of a device kernel in the profile: the first group one of whose
 # patterns its name contains.
 PROFILE_LAYERS = (
-    ("nms_keep_mask", ("nms_keep_mask_kernel",)),
+    ("nms_keep_mask", ("nms_iou_mask_kernel", "nms_scan_kernel")),
     ("roi_pool_taps_bwd", ("roi_pool_taps_bwd_kernel",)),
     ("roi_pool_taps", ("roi_pool_taps_kernel",)),
     ("roi_pool_fused", ("roi_pool_fused_kernel",)),
@@ -1006,8 +1010,7 @@ def main() -> None:
             "library_ms": None,
             "shape": parity["rpn"]["shape"],
             "launches_by_path": by_path("nms_keep_mask"),
-            "per_class": parity["per_class"],
-            "train": parity["train"],
+            **{label: parity[label] for label in ("per_class", "train", "train_scene")},
         },
         {
             "name": "roi_pool_taps",

@@ -50,7 +50,7 @@ _I = ctypes.c_int
 KERNELS: Dict[str, Kernel] = {
     "nms_keep_mask": Kernel(
         "nms_keep_mask.cu", ("-fmad=false",), "nms_keep_mask_launch",
-        [_P, _P, _P, _I, _I, ctypes.c_float, _I, _P],
+        [_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P],
     ),
     "roi_pool_taps": Kernel(
         "roi_pool_taps.cu", ("-fmad=false",), "roi_pool_taps_launch",

@@ -22,10 +22,14 @@ from fasterrcnn_torch.ops.kernels import _build
 
 NEG_INF = -1e30
 
-# The kernel keeps the boxes (16 bytes) and an alive flag (1 byte) of one
-# problem in a block's shared memory: at most 227 KB on Hopper, less the
-# kernel's static shared memory (under 1 KB).
-MAX_KERNEL_K = (232448 - 1024) // 17
+# Candidates a word of the kernel's suppression mask covers.
+WORD = 64
+
+# The kernel's scan keeps two 8-byte words per 64 candidates of a problem in
+# a block's shared memory: at most 227 KB on Hopper, less 4 KB for the scan's
+# static shared memory. Long before that, the mask scratch (`mask_bytes`)
+# outgrows the card: 104 GB a problem at this K.
+MAX_KERNEL_K = (232448 - 4096) // 16 * WORD
 
 # Boxes per block of the plain version's blocked scan.
 _BLOCK = 256
@@ -77,12 +81,24 @@ def nms_keep_mask_plain(
     return keep & (keep.cumsum(dim=1) <= max_keep)
 
 
+def mask_bytes(n: int, k: int) -> int:
+    """Bytes of the kernel's suppression-mask scratch for N problems of K boxes."""
+    return n * k * -(-k // WORD) * 8
+
+
 def nms_keep_mask(
     boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float, max_keep: int
 ) -> torch.Tensor:
     """Greedy keep-mask of N problems: (N, K, 4) f32, (N, K) -> (N, K) bool.
 
-    CPU tensors go to `nms_keep_mask_plain`; CUDA tensors launch the kernel.
+    CPU tensors go to `nms_keep_mask_plain`; CUDA tensors launch the kernel
+    (`ops/kernels/csrc/nms_keep_mask.cu`), two passes on the current stream:
+    every IoU test into a suppression bitmask, `mask[n, i, w]` (int64 words,
+    bit b of word w set iff box i suppresses box 64 w + b > i), then a scan
+    of each problem over its words in order. The mask is scratch allocated
+    here, `mask_bytes(N, K)` (72 MB at 4 x 12000); if it does not fit on the
+    card this raises `torch.cuda.OutOfMemoryError`. K is at most
+    `MAX_KERNEL_K`, the scan's shared memory.
     """
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or valid.shape != boxes.shape[:2]:
         raise ValueError(f"boxes {tuple(boxes.shape)} / valid {tuple(valid.shape)}")
@@ -98,11 +114,18 @@ def nms_keep_mask(
     boxes = boxes.contiguous()
     valid = valid.to(torch.bool).contiguous()
     keep = torch.empty((n, k), dtype=torch.bool, device=boxes.device)
+    try:
+        mask = torch.empty((n, k, -(-k // WORD)), dtype=torch.int64, device=boxes.device)
+    except torch.cuda.OutOfMemoryError as err:
+        raise torch.cuda.OutOfMemoryError(
+            f"nms_keep_mask: the suppression mask of {n} x {k} boxes needs {mask_bytes(n, k)} bytes "
+            f"on {boxes.device}, which cannot be allocated"
+        ) from err
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.launch(
             "nms_keep_mask",
-            boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+            boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), mask.data_ptr(),
             n, k, float(iou_threshold), int(max_keep), stream,
         )
     nms_keep_mask.launches += 1

@@ -6,7 +6,8 @@ with a card and PyTorch alone:
     python -m pytest --noconftest -q -p no:cacheprovider tests/test_torch_cuda.py
 
 The tests marked `cuda` skip where torch.cuda.is_available() is false.
-Tolerances: NMS keep-masks are decisions and must be identical. RoI pooling
+Tolerances: NMS keep-masks are decisions and must be identical, and two
+launches must give the same bits. RoI pooling
 must be identical too, in f32 and in bf16: kernel and plain version round
 each tap product and each two-tap sum once, and in bf16 the weights, the
 rows, each x-tap product and the x-sum to bf16 (K2), or the weights, the
@@ -28,7 +29,7 @@ from fasterrcnn_torch.ops import conv as torch_conv
 from fasterrcnn_torch.ops import nms as torch_nms
 from fasterrcnn_torch.ops import roi as torch_roi
 from fasterrcnn_torch.ops.kernels import _build
-from fasterrcnn_torch.scripts import profile_conv
+from fasterrcnn_torch.scripts import profile_conv, profile_nms
 
 
 @pytest.fixture
@@ -36,14 +37,6 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     return torch.device("cuda")
-
-
-def sorted_boxes(rng, n, k, spread=800.0):
-    cy = rng.uniform(0, spread, (n, k))
-    cx = rng.uniform(0, spread, (n, k))
-    h = rng.uniform(16, 300, (n, k))
-    w = rng.uniform(16, 300, (n, k))
-    return np.stack([cy - h / 2, cx - w / 2, cy + h / 2, cx + w / 2], -1).astype(np.float32)
 
 
 def roi_inputs(seed, b, h, w, c, p, img_h, img_w, real_fh, real_fw):
@@ -58,7 +51,7 @@ def roi_inputs(seed, b, h, w, c, p, img_h, img_w, real_fh, real_fw):
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     rng = np.random.default_rng(0)
-    boxes = torch.from_numpy(sorted_boxes(rng, 2, 50))
+    boxes = torch.from_numpy(profile_nms.sorted_boxes(rng, 2, 50))
     valid = torch.ones((2, 50), dtype=torch.bool)
     fm, rois, norm = map(torch.from_numpy, roi_inputs(0, 1, 6, 8, 16, 5, 96.0, 128.0, 6, 8))
     nms_before, roi_before = torch_nms.nms_keep_mask.launches, torch_roi.roi_pool_taps.launches
@@ -146,15 +139,23 @@ def test_plain_roi_rounds_as_the_kernel(dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "n,k,thr,max_keep",
+    "n,k,thr,max_keep,layout",
     [
-        (4, 6000, 0.7, 300), (80, 300, 0.3, 300), (2, 12000, 0.7, 2000), (1, 12000, 0.7, 2000),
-        (3, 37, 0.5, 40), (5, 1000, 0.5, 0),
+        (4, 6000, 0.7, 300, "spread"), (80, 300, 0.3, 300, "spread"), (2, 12000, 0.7, 2000, "spread"),
+        (1, 12000, 0.7, 2000, "spread"), (3, 37, 0.5, 40, "spread"), (5, 1000, 0.5, 0, "spread"),
+        # Boxes piled onto a few objects: accepts stall below max_keep and
+        # the scan walks every word.
+        (4, 12000, 0.7, 2000, "clustered"), (4, 6000, 0.7, 300, "clustered"), (3, 1000, 0.5, 1000, "clustered"),
+        # Ragged K (one word, one short of a word, one past it), and K past
+        # the shared-memory limit of the kernel before the mask pass.
+        (3, 1, 0.5, 5, "spread"), (3, 63, 0.5, 63, "clustered"), (3, 65, 0.5, 65, "clustered"),
+        (1, 13000, 0.7, 13000, "spread"), (2, 20000, 0.7, 2000, "clustered"),
     ],
 )
-def test_cuda_nms_kernel_matches_plain(cuda, n, k, thr, max_keep):
+def test_cuda_nms_kernel_matches_plain(cuda, n, k, thr, max_keep, layout):
     rng = np.random.default_rng(k)
-    boxes = torch.from_numpy(sorted_boxes(rng, n, k)).to(cuda)
+    make = profile_nms.sorted_boxes if layout == "spread" else profile_nms.clustered_boxes
+    boxes = torch.from_numpy(make(rng, n, k)).to(cuda)
     valid = torch.from_numpy(rng.uniform(size=(n, k)) > 0.1).to(cuda)
     before = torch_nms.nms_keep_mask.launches
     got = torch_nms.nms_keep_mask(boxes, valid, thr, max_keep)
@@ -163,13 +164,26 @@ def test_cuda_nms_kernel_matches_plain(cuda, n, k, thr, max_keep):
     assert torch_nms.nms_keep_mask.launches == before + 1
     assert torch.equal(got, want)
     assert int(got.sum(dim=1).max()) <= max_keep
+    # No atomics decide a bit: a second launch must give the same mask.
+    assert torch.equal(torch_nms.nms_keep_mask(boxes, valid, thr, max_keep), got)
+
+
+@pytest.mark.cuda
+def test_cuda_nms_reports_a_mask_scratch_that_does_not_fit(cuda):
+    """900,000 boxes are inside the scan's shared-memory limit, but their
+    suppression mask (101 GB) exceeds the card's memory."""
+    k = 900_000
+    assert k <= torch_nms.MAX_KERNEL_K
+    boxes = torch.zeros((1, k, 4), device=cuda)
+    with pytest.raises(torch.cuda.OutOfMemoryError, match="suppression mask"):
+        torch_nms.nms_keep_mask(boxes, torch.ones((1, k), dtype=torch.bool, device=cuda), 0.5, 10)
 
 
 @pytest.mark.cuda
 def test_cuda_nms_full_gather_matches_cpu(cuda):
     """`nms` (sort, kernel, gather) on the card equals the CPU's result."""
     rng = np.random.default_rng(5)
-    boxes = torch.from_numpy(sorted_boxes(rng, 6, 300, spread=300.0))
+    boxes = torch.from_numpy(profile_nms.sorted_boxes(rng, 6, 300, 300.0, 300.0))
     scores = torch.from_numpy(rng.uniform(size=(6, 300)).astype(np.float32))
     valid = torch.from_numpy(rng.uniform(size=(6, 300)) > 0.3)
     want = torch_nms.nms(boxes, scores, valid, 0.3, 300)
