@@ -1,11 +1,12 @@
 """Engine: holds the model, its optimizer and per-canvas programs.
 
-`Engine(model_cfg, seed, device, train_cfg)` builds the model with seeded
-random weights on `device` ("cuda" unless the caller asks for "cpu");
-`set_params` installs a state_dict (see `utils/weights.py` for one made from
-the JAX package's parameters) and restarts the optimizer; `predict` runs a
-padded canvas batch; `predict_image` pads one image into its canvas bucket
-and returns the reference's per-class dict; `train_step` takes one optimizer
+`Engine(model_cfg, train_cfg, seed, device)` (the JAX package's argument
+order) builds the model with seeded random weights on `device` ("cuda"
+unless the caller asks for "cpu"); `set_params` installs a state_dict (see
+`utils/weights.py` for one made from the JAX package's parameters) and
+restarts the optimizer; `predict` runs a padded canvas batch;
+`predict_image` stages one `data/voc.Sample` into its canvas bucket and
+returns the reference's per-class dict; `train_step` takes one optimizer
 step on a padded batch and `train_epoch` runs one over a dataset.
 """
 
@@ -13,13 +14,14 @@ from __future__ import annotations
 
 import math
 import sys
-from typing import Dict, Iterable, Optional, Sequence, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from fasterrcnn_torch.config import ModelConfig, TrainConfig, select_canvas
-from fasterrcnn_torch.data.pipeline import Prefetcher, batched
+from fasterrcnn_torch.data.pipeline import Prefetcher, batched, make_host_batch
+from fasterrcnn_torch.data.voc import Sample
 from fasterrcnn_torch.models.faster_rcnn import (
     Batch,
     Detections,
@@ -43,25 +45,6 @@ def resolve_device(device) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return dev
-
-
-def pad_to_canvas(
-    images_u8: Sequence[np.ndarray], canvas_hw: Tuple[int, int]
-) -> Tuple[np.ndarray, np.ndarray]:
-    """Place (h, w, 3) uint8 images in the top-left corner of zero canvases.
-
-    Returns (images (B, ch, cw, 3) uint8, image_hw (B, 2) f32 real extents).
-    """
-    ch, cw = canvas_hw
-    images = np.zeros((len(images_u8), ch, cw, 3), np.uint8)
-    image_hw = np.zeros((len(images_u8), 2), np.float32)
-    for i, img in enumerate(images_u8):
-        h, w = img.shape[:2]
-        if h > ch or w > cw:
-            raise ValueError(f"image {h}x{w} does not fit the {ch}x{cw} canvas")
-        images[i, :h, :w] = img
-        image_hw[i] = (h, w)
-    return images, image_hw
 
 
 def parameter_labels(model: FasterRCNN) -> Dict[str, str]:
@@ -163,9 +146,9 @@ class Engine:
     def __init__(
         self,
         model_cfg: ModelConfig = ModelConfig(),
+        train_cfg: TrainConfig = TrainConfig(),
         seed: int = 0,
         device="cuda",
-        train_cfg: TrainConfig = TrainConfig(),
     ):
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
@@ -260,9 +243,8 @@ class Engine:
         predict = self.predict_fn_for(tuple(images.shape[1:3]))
         return predict(images, hw, score_threshold=score_threshold)
 
-    def predict_image(self, image_u8: np.ndarray, score_threshold: float = 0.7) -> Dict[int, np.ndarray]:
-        """Single-image predict -> reference-style per-class dict."""
-        canvas = select_canvas(*image_u8.shape[:2])
-        images, image_hw = pad_to_canvas([image_u8], canvas)
-        det = self.predict(images, image_hw, score_threshold=score_threshold)
+    def predict_image(self, sample: Sample, score_threshold: float = 0.7) -> Dict[int, np.ndarray]:
+        """Single-sample predict -> reference-style per-class dict."""
+        hb = make_host_batch([sample], select_canvas(*sample.image_hw), self.model_cfg.max_gt_boxes)
+        det = self.predict(hb.images, hb.image_hw, score_threshold=score_threshold)
         return postprocess.detections_to_dicts(det)[0]

@@ -4,8 +4,9 @@ Each source under `csrc/` is compiled on its own into a shared library with a
 plain C interface, for Hopper (`sm_90a`), at first use. The library's file
 name carries a hash of its source, the shared headers (`csrc/*.cuh`) and the
 flags, so an edited source or header is rebuilt and a stale library is never
-loaded. Builds go to `build/` beside this file,
-which `.gitignore` lists.
+loaded. Builds go to `build/` beside this file (which `.gitignore` lists),
+or, where the package directory is not writable (an installed package in a
+read-only site-packages), to `~/.cache/fasterrcnn_torch/kernels`.
 
 Nothing here runs at import: the CPU-only test machines import every module
 of the package and have neither nvcc nor a card.
@@ -14,17 +15,21 @@ of the package and have neither nvcc nor a card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
+from collections import Counter
 from pathlib import Path
 from typing import Dict, List, NamedTuple, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent / "build"
+PACKAGE_BUILD_DIR = Path(__file__).resolve().parent / "build"
 
 _COMMON_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -54,11 +59,11 @@ KERNELS: Dict[str, Kernel] = {
     ),
     "roi_pool_taps": Kernel(
         "roi_pool_taps.cu", ("-fmad=false",), "roi_pool_taps_launch",
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     ),
     "roi_pool_taps_bwd": Kernel(
         "roi_pool_taps_bwd.cu", ("-fmad=false",), "roi_pool_taps_bwd_launch",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     ),
     "roi_pool_fused": Kernel(
         "roi_pool_fused.cu", ("-fmad=false",), "roi_pool_fused_launch",
@@ -89,13 +94,37 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _writable(directory: Path) -> bool:
+    try:
+        directory.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryFile(dir=directory):
+            return True
+    except OSError:
+        return False
+
+
+def build_dir(package_dir: Path = PACKAGE_BUILD_DIR) -> Path:
+    """Where the libraries are built: `package_dir` if it can be written,
+    else a directory under the user's cache."""
+    if _writable(package_dir):
+        return package_dir
+    cache = Path.home() / ".cache" / "fasterrcnn_torch" / "kernels"
+    cache.mkdir(parents=True, exist_ok=True)
+    return cache
+
+
+@functools.lru_cache(maxsize=None)
+def _build_dir() -> Path:
+    return build_dir()  # chosen once a process
+
+
 def _command(name: str) -> Tuple[List[str], Path]:
     kernel = KERNELS[name]
     src = CSRC / kernel.source
     flags = list(_COMMON_FLAGS) + list(kernel.flags)
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"lib{name}_{digest}.so"
+    out = _build_dir() / f"lib{name}_{digest}.so"
     return [_nvcc(), *flags, "-o", str(out), str(src)], out
 
 
@@ -107,7 +136,6 @@ def build(names=None) -> Dict[str, Dict[str, object]]:
     fails.
     """
     names = list(KERNELS) if names is None else list(names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     result: Dict[str, Dict[str, object]] = {}
     for name in names:
@@ -134,14 +162,26 @@ def build(names=None) -> Dict[str, Dict[str, object]]:
     return result
 
 
-def sass_count(name: str, opcode: str) -> int:
-    """How many instructions of the built library of one kernel are `opcode`
-    (e.g. HGMMA, the tensor cores' warpgroup MMA), from `cuobjdump -sass`."""
+def sass_opcodes(name: str) -> Counter:
+    """How many instructions of each opcode (with its modifiers, e.g.
+    `LDG.E.128.CONSTANT`) the built library of one kernel holds, from
+    `cuobjdump -sass`."""
     build([name])
     _, out = _command(name)
     tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(out)], capture_output=True, text=True, check=True).stdout
-    return sum(1 for line in sass.splitlines() if f" {opcode}." in line or f" {opcode} " in line)
+    counts: Counter = Counter()
+    for line in sass.splitlines():
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Za-z0-9_.]*)", line)
+        if m:
+            counts[m.group(1)] += 1
+    return counts
+
+
+def sass_count(name: str, opcode: str) -> int:
+    """How many instructions of the built library of one kernel are `opcode`
+    with any modifiers (e.g. HGMMA, the tensor cores' warpgroup MMA)."""
+    return sum(n for op, n in sass_opcodes(name).items() if op == opcode or op.startswith(opcode + "."))
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -22,6 +22,8 @@ RoIs are garbage that callers mask out.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from fasterrcnn_torch.ops.kernels import _build
@@ -195,6 +197,18 @@ def _check_roi_args(feature_map: torch.Tensor, rois: torch.Tensor, norm: torch.T
         raise ValueError(f"feature_map on {dev}, rois on {rois.device}, norm on {norm.device}")
 
 
+def lane_width(c: int, *tensors: torch.Tensor, channels: Optional[int] = None) -> int:
+    """Channels a thread of K2 or K3 works on: `channels` (default 16 bytes
+    of the first tensor's type: 4 f32 or 8 bf16), so that a thread's run of
+    them is one vector access, when C is a multiple of it and every tensor's
+    data is aligned to such a run of its own type; else 1 (scalar lanes, the
+    same kernel and the same values)."""
+    vec = channels or 16 // tensors[0].element_size()
+    if c % vec == 0 and all(t.data_ptr() % (vec * t.element_size()) == 0 for t in tensors):
+        return vec
+    return 1
+
+
 def _launch_forward(name: str, feature_map: torch.Tensor, rois: torch.Tensor, norm: torch.Tensor) -> torch.Tensor:
     """Launch a RoI forward kernel (`roi_pool_taps` or `roi_pool_fused`) on
     CUDA tensors: (B,H,W,C), (B,P,4), (B,2) -> (B,P,7,7,C) in the map's type."""
@@ -204,12 +218,14 @@ def _launch_forward(name: str, feature_map: torch.Tensor, rois: torch.Tensor, no
     norm = norm.float().contiguous()
     p = rois.shape[1]
     out = torch.empty((b, p, OUTPUT_SIZE, OUTPUT_SIZE, c), dtype=fm.dtype, device=fm.device)
+    # K2 takes its lane width; K4 has one layout.
+    lanes = (lane_width(c, fm, out),) if name == "roi_pool_taps" else ()
     with torch.cuda.device(fm.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.launch(
             name,
             fm.data_ptr(), rois.data_ptr(), norm.data_ptr(), out.data_ptr(),
-            b, h, w, c, p, int(fm.dtype == torch.bfloat16), stream,
+            b, h, w, c, p, int(fm.dtype == torch.bfloat16), *lanes, stream,
         )
     return out
 
@@ -248,12 +264,15 @@ def roi_pool_taps_bwd(
     rois = rois.float().contiguous()
     norm = norm.float().contiguous()
     gfm = torch.zeros((b, h, w, c), dtype=torch.float32, device=fm.device)
+    item = fm.element_size() // 2  # 2 for f32, 1 for bf16
     with torch.cuda.device(fm.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.launch(
             "roi_pool_taps_bwd",
             fm.data_ptr(), rois.data_ptr(), norm.data_ptr(), g.data_ptr(), gfm.data_ptr(),
-            b, h, w, c, p, int(fm.dtype == torch.bfloat16), stream,
+            # 8 bytes of the map a thread (2 f32 or 4 bf16 channels), one
+            # vector reduction into gfm: wider lanes cost registers and ran slower.
+            b, h, w, c, p, int(fm.dtype == torch.bfloat16), lane_width(c, fm, g, gfm, channels=4 // item), stream,
         )
     roi_pool_taps_bwd.launches += 1
     return gfm.to(fm.dtype)

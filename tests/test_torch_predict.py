@@ -20,9 +20,12 @@ import pytest
 import torch
 
 from fasterrcnn_tpu import config as jax_config
+from fasterrcnn_tpu import engine as jax_engine
+from fasterrcnn_tpu.data import voc as jax_voc
 from fasterrcnn_tpu.models import faster_rcnn as jax_frcnn
 from fasterrcnn_tpu.models.rpn import generate_proposals as jax_generate_proposals
 from fasterrcnn_torch import config as torch_config
+from fasterrcnn_torch.data import voc as torch_voc
 from fasterrcnn_torch.engine import Engine
 from fasterrcnn_torch.models import faster_rcnn as torch_frcnn
 from fasterrcnn_torch.models.rpn import generate_proposals
@@ -211,12 +214,47 @@ def test_engine_predict_image_on_cpu(models):
     images[:, 120:] = 0  # predict_image pads with zeros
     images[:, :, 150:] = 0
     want = engine.predict(images, image_hw, score_threshold=0.0)
-    got = engine.predict_image(image, score_threshold=0.0)
+    got = engine.predict_image(image_sample(image), score_threshold=0.0)
     assert sorted(got) == list(range(1, 21))
     for c, rows in got.items():
         live = want.valid[0, c - 1] > 0
         assert rows.shape == (int(live.sum()), 5)
         np.testing.assert_allclose(rows[:, 4], want.scores[0, c - 1][live].numpy(), rtol=0, atol=1e-6)
+
+
+def image_sample(image, package=torch_voc):
+    return package.Sample(image_u8=image, image_hw=image.shape[:2], gt_boxes=[], filepath="synthetic")
+
+
+def test_engine_predict_image_matches_jax(models):
+    """Both engines' predict_image on one Sample, with the same weights, give
+    the same detections: the tolerances of test_predict_matches_jax."""
+    _, params, _ = models
+    image = synthetic_images(6, b=1)[0][0, :120, :150].copy()
+    jax_eng = jax_engine.Engine(tiny_config(jax_config), seed=0, init_canvas=(CANVAS_H, CANVAS_W))
+    jax_eng.set_params(params)
+    port_eng = Engine(tiny_config(torch_config), device="cpu")
+    port_eng.set_params(from_jax_params(params))
+    want = jax_eng.predict_image(image_sample(image, jax_voc), score_threshold=0.0)
+    got = port_eng.predict_image(image_sample(image), score_threshold=0.0)
+    assert sorted(got) == sorted(want) == list(range(1, 21))
+    assert sum(len(r) for r in got.values()) > 0
+    for c in want:
+        assert got[c].shape == want[c].shape, f"class {c}"
+        np.testing.assert_allclose(got[c][:, :4], want[c][:, :4], rtol=0, atol=1e-3)
+        np.testing.assert_allclose(got[c][:, 4], want[c][:, 4], rtol=0, atol=1e-5)
+
+
+def test_engine_binds_its_arguments_in_the_reference_order():
+    """Engine(model_cfg, train_cfg) binds as the JAX package's Engine does."""
+    train_cfg = torch_config.TrainConfig(learning_rate=0.25, optimizer="adam")
+    engine = Engine(tiny_config(torch_config), train_cfg, 3, "cpu")
+    assert engine.train_cfg is train_cfg and engine.device.type == "cpu"
+    assert engine.optimizer.optimizer.param_groups[0]["lr"] == 0.25
+    assert isinstance(engine.optimizer.optimizer, torch.optim.Adam)
+    twin = Engine(tiny_config(torch_config), seed=3, device="cpu")
+    for a, b in zip(engine.model.parameters(), twin.model.parameters()):
+        assert torch.equal(a, b)
 
 
 def test_engine_without_cuda_raises_instead_of_using_the_cpu():
