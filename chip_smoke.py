@@ -9,8 +9,9 @@ result line):
   2. build: compile every CUDA kernel of the port (K1-K6) from the sources
      in the checkout (one nvcc per source, in parallel); print the count of
      HGMMA (tensor-core warpgroup MMA) instructions in each conv library,
-     of 128-bit global loads in K2's and of vector f32 reductions in K3's,
-     and fail if any is 0.
+     and of those with a TF32 modifier (the f32 paths' 3xTF32 products), of
+     128-bit global loads in K2's and of vector f32 reductions in K3's, and
+     fail if any is 0.
   3. kernel parity: each kernel against its plain PyTorch version on the
      card, at its paths' shapes: NMS keep-masks identical, and identical
      again on a second launch, at the cases of
@@ -28,9 +29,9 @@ result line):
      and on a map one element past a 16-byte boundary; the conv kernels K5 (blocks 5, 4 and 3:
      4x38x50x512 -> 512, 4x76x100x512 -> 512, 4x152x200x256 -> 256) and K6
      (block 2, 4x304x400x128 -> 128, and conv2_1's 64 -> 128), f32 and
-     bf16 (bf16 on the tensor cores, f32 on the CUDA cores), with and
-     without ReLU, within `profile_conv.conv_close`, each bf16 case launched
-     twice and required to give the same bits; CUDA
+     bf16 (both on the tensor cores, f32 as 3xTF32), with and without ReLU,
+     within `profile_conv.conv_close`, each case launched twice and required
+     to give the same bits; CUDA
      inputs that
      require grad get a grad_fn from roi_pool_taps (its backward launches
      K3) and from both convs (their backward equals the plain version's).
@@ -56,8 +57,9 @@ result line):
      launch K4 and equal `roi_pool_fused_plain` and `roi_pool_taps` there,
      bit for bit.
   6b. conv A/B (K5's and K6's path): `fasterrcnn_torch.scripts.profile_conv`
-     at --batch 4, bf16: every row timed, K5 and K6 launched (phase 3 holds
-     each kernel against its plain version at each of these shapes).
+     at --batch 4, bf16 and f32: every row timed, K5 and K6 launched (phase
+     3 holds each kernel against its plain version at each of these
+     shapes).
   7. timing: Engine.predict and Engine.train_step on the host's batch, ms
      per batch and img/s (f32 with TF32 off, f32 with cuDNN TF32 on, bf16),
      and the peak memory of the f32 call. Each kernel's time, with CUDA
@@ -85,6 +87,9 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
+# H100 SXM TF32 tensor cores (494.7 TFLOP/s dense) spent three times for
+# each f32-grade product: the fastest f32 rate, which 3xTF32 convs can reach.
+TF32X3_FLOPS = 494.7e12 / 3
 
 # The conv kernels' parity shapes, (B, H, W, C, Cout): VGG-16 blocks 5, 4
 # and 3 (K5), block 2 and conv2_1 (K6), at the 608x800 canvas. They hold
@@ -377,17 +382,25 @@ def conv_parity(dev):
                 check(got.dtype == dtype and got.shape == (b, h, w, cout), f"{name} {label} {tag}: {got.dtype}")
                 ok, err, peak, steps = conv_close(got, want)
                 errs.append(err)
+                if dtype == torch.float32:
+                    # Of the outputs that differ, the share nearer zero than the
+                    # plain version's: ~0.5 if the kernel's f32 sums round
+                    # without bias, towards 1 if they truncate.
+                    moved = got != want
+                    toward_zero = float(((got.abs() < want.abs()) & moved).sum() / moved.sum().clamp_min(1))
                 print(f"{name} {label} {tag} relu={relu} {(b, h, w, c, cout)}: max_abs_err {errs[-1]!r} "
                       f"(max |plain| {peak!r}; tolerance "
                       + (f"1e-5 of the largest + one bf16 step of the value: {steps!r} steps)"
-                         if dtype == torch.bfloat16 else "1e-4 of the largest)"), flush=True)
+                         if dtype == torch.bfloat16 else
+                         f"1e-4 of the largest); {toward_zero!r} of the differing outputs lie nearer zero"),
+                      flush=True)
                 check(ok, f"{name} {label} {tag} relu={relu}: outside tolerance, max_abs_err {errs[-1]}")
-                if dtype == torch.bfloat16:  # a ring stage overwritten while wgmma reads it would differ
-                    check(torch.equal(fn(x, wt, bias, relu=relu), got), f"{name} {label} bf16: second launch differs")
+                # A ring stage, or a TF32 A fragment, overwritten while a wgmma reads it would differ.
+                check(torch.equal(fn(x, wt, bias, relu=relu), got), f"{name} {label} {tag}: second launch differs")
             reps = 10 if h * w * c * cout < 1e9 else 4
             item = x.element_size()
             flops = 2.0 * b * h * w * 9 * c * cout
-            peak_rate = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+            peak_rate = TF32X3_FLOPS if dtype == torch.float32 else BF16_FLOPS
             bytes_moved = (b * h * w * (c + cout) + wt.numel() + cout) * item
             w_cl = wt.contiguous(memory_format=torch.channels_last)
             operands = conv_ops.kernel_operands(name, x, wt)
@@ -402,10 +415,14 @@ def conv_parity(dev):
                 bound_by="bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / peak_rate else "operations",
                 library_ms=time_ms(lambda: library_conv(x, w_cl, bias), 20),
                 shape=[b, h, w, c, cout],
-                design="wgmma" if dtype == torch.bfloat16 else "cuda cores f32",
+                design="wgmma" if dtype == torch.bfloat16 else "wgmma 3xTF32",
             )
+            if dtype == torch.float32:
+                row["bound_cuda_cores_ms"] = 1e3 * flops / F32_FLOPS  # the slower f32 rate, under its own name
+                row["toward_zero_share"] = toward_zero  # of the relu=False outputs that differ
             print(f"  {name} {label} {tag}: {row['ms']!r} ms (kernel alone {row['kernel_only_ms']!r}), "
-                  f"plain {row['plain_ms']!r} ms, library {row['library_ms']!r} ms, bound {row['bound_ms']!r} ms",
+                  f"plain {row['plain_ms']!r} ms, library {row['library_ms']!r} ms, bound {row['bound_ms']!r} ms"
+                  + (f" (CUDA cores {row['bound_cuda_cores_ms']!r} ms)" if "bound_cuda_cores_ms" in row else ""),
                   flush=True)
     return results
 
@@ -683,20 +700,23 @@ def phase_fused_roi_op(engine, images, image_hw, counters):
 
 
 def phase_conv_ab(counters, card):
-    """K5's and K6's path: the conv A/B entry point at B=4 in bf16, with
-    every launch count set to 0 before it. Every row must carry a time and
-    both kernels must launch."""
+    """K5's and K6's path: the conv A/B entry point at B=4 in bf16 and in
+    f32, with every launch count set to 0 before it. Every row must carry a
+    time and both kernels must launch."""
     import torch
     from fasterrcnn_torch.scripts import profile_conv
 
     for fn in counters:
         fn.launches = 0
-    rows = profile_conv.main(["--batch", "4", "--reps", "5"])
+    rows = [row for dtype in ("bfloat16", "float32")
+            for row in profile_conv.main(["--batch", "4", "--reps", "5", "--dtype", dtype])]
     torch.cuda.synchronize()
     launches = path_launches(counters, ("conv3x3", "conv3x3_im2col"), "conv A/B path")
     want = {(name, "library") for name, *_ in profile_conv.SHAPES}
     want |= {("block5", "conv3x3"), ("block4", "conv3x3"), ("block3", "conv3x3"), ("block2", "im2col")}
-    check({(r["layer"], r["impl"]) for r in rows} == want, f"conv A/B rows: {[(r['layer'], r['impl']) for r in rows]}")
+    want = {(*row, dtype) for row in want for dtype in ("bfloat16", "float32")}
+    got = {(r["layer"], r["impl"], r["dtype"]) for r in rows}
+    check(got == want and len(rows) == len(want), f"conv A/B rows: {sorted(got)}")
     for r in rows:
         check("error" not in r and np.isfinite(r["ms"]) and r["ms"] > 0, f"conv A/B row without a time: {r}")
     print(json.dumps({"conv_ab": rows, "card": card}), flush=True)
@@ -781,7 +801,7 @@ PROFILE_LAYERS = (
     ("roi_pool_taps", ("roi_pool_taps_kernel",)),
     ("roi_pool_fused", ("roi_pool_fused_kernel",)),
     ("conv (hand-written)", (
-        "conv3x3_kernel", "conv3x3_im2col_kernel", "conv3x3_bf16_kernel", "conv3x3_im2col_bf16_kernel",
+        "conv3x3_f32_kernel", "conv3x3_im2col_f32_kernel", "conv3x3_bf16_kernel", "conv3x3_im2col_bf16_kernel",
     )),
     ("host-to-device copy", ("Memcpy HtoD",)),
     ("max pool", ("max_pool",)),
@@ -870,11 +890,16 @@ def main() -> None:
           f"({', '.join(f'{k} {v['seconds']:.1f} s' for k, v in logs.items())})", flush=True)
     for name, info in logs.items():
         for line in str(info["log"]).splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(key in line for key in ("registers", "spill", "smem", "wgmma", "Performance Loss")):
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
-    hgmma = {name: _build.sass_count(name, "HGMMA") for name in ("conv3x3", "conv3x3_im2col")}
-    print(f"HGMMA instructions (cuobjdump -sass): {hgmma}", flush=True)
+    conv_sass = {name: _build.sass_opcodes(name) for name in ("conv3x3", "conv3x3_im2col")}
+    hgmma = {name: sum(n for op, n in ops.items() if op.split(".")[0] == "HGMMA") for name, ops in conv_sass.items()}
+    hgmma_tf32 = {name: sum(n for op, n in ops.items() if op.split(".")[0] == "HGMMA" and "TF32" in op.split("."))
+                  for name, ops in conv_sass.items()}
+    print(f"HGMMA instructions (cuobjdump -sass): {hgmma}, of them TF32 (the f32 paths): {hgmma_tf32}; "
+          f"{ {k: {op: n for op, n in v.items() if op.startswith('HGMMA')} for k, v in conv_sass.items()} }", flush=True)
     check(all(n > 0 for n in hgmma.values()), f"a conv library holds no HGMMA: {hgmma}")
+    check(all(n > 0 for n in hgmma_tf32.values()), f"a conv library holds no TF32 HGMMA: {hgmma_tf32}")
     roi_sass = {name: _build.sass_opcodes(name) for name in ("roi_pool_taps", "roi_pool_taps_bwd")}
     vector_loads = sum(n for op, n in roi_sass["roi_pool_taps"].items() if op.startswith("LDG") and ".128" in op)
     vector_reductions = sum(n for op, n in roi_sass["roi_pool_taps_bwd"].items()
@@ -989,6 +1014,7 @@ def main() -> None:
             **{k: parity["block5_f32"][k] for k in (*keys, "library_ms", "shape")},
             "launches_by_path": by_path("conv3x3"),
             "hgmma_instructions": hgmma["conv3x3"],
+            "hgmma_tf32_instructions": hgmma_tf32["conv3x3"],
             "bf16": parity["block5_bf16"],
             **{label: {"f32": parity[f"{label}_f32"], "bf16": parity[f"{label}_bf16"]} for label in ("block4", "block3")},
         },
@@ -1001,6 +1027,7 @@ def main() -> None:
             **{k: parity["block2_f32"][k] for k in (*keys, "library_ms", "shape")},
             "launches_by_path": by_path("conv3x3_im2col"),
             "hgmma_instructions": hgmma["conv3x3_im2col"],
+            "hgmma_tf32_instructions": hgmma_tf32["conv3x3_im2col"],
             "bf16": parity["block2_bf16"],
             "conv2_1": {"f32": parity["conv2_1_f32"], "bf16": parity["conv2_1_bf16"]},
         },

@@ -11,12 +11,16 @@ no model calls them (the backbone's convs are cuDNN's, `models/layers.py`).
     GEMM of depth 9C over a kx-major patch matrix, the TPU kernel's
     formulation for the C = 64/128 layers.
 
-Each kernel has two paths, chosen by x's dtype: bf16 runs on the tensor
-cores (`wgmma`, weights prepacked by `pack_conv3x3_weights` /
-`pack_conv3x3_im2col_weights`, input channels zero-padded to a multiple of
-8 for 16-byte copies), f32 on the CUDA cores (weights repacked to f32). A
-bf16 x takes bf16 weights and bias: with f32 weights the JAX package's
-`jnp.dot(bf16, f32)` would promote to f32, a different function.
+Each kernel runs on the tensor cores (`wgmma`, `csrc/conv_wgmma.cuh`) in
+two paths chosen by x's dtype: bf16 as it is, f32 as 3xTF32 (each f32
+operand split into a TF32 high and low part, three TF32 products summed in
+f32, which keeps f32 parity). The weights come prepacked in the kernels'
+B layout, by `pack_conv3x3_weights` / `pack_conv3x3_im2col_weights` (bf16)
+and `pack_conv3x3_weights_f32` / `pack_conv3x3_im2col_weights_f32` (f32,
+split into hi and lo by `split_tf32`); input channels are zero-padded to a
+multiple of 8 for 16-byte copies. A bf16 x takes bf16 weights and bias: with
+f32 weights the JAX package's `jnp.dot(bf16, f32)` would promote to f32, a
+different function.
 
 Activations are (B, H, W, C) and weights (Cout, C, 3, 3), the layout
 `nn.Conv2d` holds. Both wrappers run `conv3x3_plain` on a CPU tensor and
@@ -46,17 +50,19 @@ def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool 
     return out.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
-# Tiles of the bf16 kernels (csrc/conv_wgmma.cuh, conv3x3.cu, conv3x3_im2col.cu).
+# Tiles of the kernels (csrc/conv_wgmma.cuh, conv3x3.cu, conv3x3_im2col.cu).
 TILE_N = 128  # output channels a block
-K5_CHUNK = 32  # input channels a K5 stage (one ky, three kx taps)
-K6_CHUNK = 64  # input channels a K6 K-tile (one tap)
+K5_CHUNK = 32  # input channels a K5 bf16 stage (one ky, three kx taps)
+K6_CHUNK = 64  # input channels a K6 bf16 K-tile (one tap)
+K5_CHUNK_F32 = 16  # the same in f32 (half K5's, so that three stages fit)
+K6_CHUNK_F32 = 32
 
 
-def _padded_bf16(w: torch.Tensor, chunk: int) -> torch.Tensor:
-    """(Cout, C, 3, 3) as bf16, zero-padded to a multiple of TILE_N output
+def _padded(w: torch.Tensor, chunk: int, dtype: torch.dtype) -> torch.Tensor:
+    """(Cout, C, 3, 3) in dtype, zero-padded to a multiple of TILE_N output
     channels and of `chunk` input channels."""
     cout, c = w.shape[:2]
-    w = w.to(torch.bfloat16)
+    w = w.to(dtype)
     if c % chunk or cout % TILE_N:  # VGG's widths need no padding: no copy
         w = F.pad(w, (0, 0, 0, 0, 0, -c % chunk, 0, -cout % TILE_N))
     return w
@@ -68,7 +74,7 @@ def pack_conv3x3_weights(w: torch.Tensor) -> torch.Tensor:
     counts rounded up with zeros. One (tile, ky, chunk) block is a stage's
     weights in the wgmma K-major layout: 8 channels of one output channel a
     16-byte row."""
-    wp = _padded_bf16(w, K5_CHUNK)
+    wp = _padded(w, K5_CHUNK, torch.bfloat16)
     n, cp = wp.shape[0] // TILE_N, wp.shape[1] // K5_CHUNK
     t = wp.reshape(n, TILE_N, cp, K5_CHUNK // 8, 8, 3, 3)  # tile, co, chunk, group, e, ky, kx
     return t.permute(0, 5, 2, 6, 3, 1, 4).contiguous()
@@ -79,10 +85,63 @@ def pack_conv3x3_im2col_weights(w: torch.Tensor) -> torch.Tensor:
     chunks, 8 channel groups, 128 output channels, 8 channels), tap = kx * 3
     + ky (the patch matrix's kx-major column order), both counts rounded up
     with zeros; one (tile, tap, chunk) block is a K-tile."""
-    wp = _padded_bf16(w, K6_CHUNK)
+    wp = _padded(w, K6_CHUNK, torch.bfloat16)
     n, cp = wp.shape[0] // TILE_N, wp.shape[1] // K6_CHUNK
     t = wp.reshape(n, TILE_N, cp, K6_CHUNK // 8, 8, 3, 3)  # tile, co, chunk, group, e, ky, kx
     return t.permute(0, 6, 5, 2, 3, 1, 4).reshape(n, 9, cp, K6_CHUNK // 8, TILE_N, 8).contiguous()
+
+
+def round_tf32(v: torch.Tensor) -> torch.Tensor:
+    """f32 v rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as `cvt.rna.tf32.f32` rounds: the 13 low bits of the result are 0."""
+    bits = v.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(v: torch.Tensor):
+    """(hi, lo): the TF32 high part of f32 v and the TF32 rounding of the
+    (exact) remainder, so hi + lo equals v within 2^-22 of |v|."""
+    hi = round_tf32(v)
+    return hi, round_tf32(v.float() - hi)
+
+
+def _pack_f32(w: torch.Tensor, chunk: int, order) -> torch.Tensor:
+    """(Cout, C, 3, 3) -> both TF32 parts of the f32 kernels' B operand, as
+    (part, tile, co, chunk, k8 step, e, h, ky, kx) permuted to `order`:
+    within each 8 channels, channel 2 e + h sits at K-group h, element e (k
+    order 0, 2, 4, 6 | 1, 3, 5, 7), the order in which each thread of the
+    kernel loads two adjacent channels as its A fragment's columns k and
+    k + 4."""
+    wp = _padded(w, chunk, torch.float32)
+    n, cp = wp.shape[0] // TILE_N, wp.shape[1] // chunk
+    t = torch.stack(split_tf32(wp)).reshape(2, n, TILE_N, cp, chunk // 8, 4, 2, 3, 3)
+    return t.permute(order).contiguous()
+
+
+def pack_conv3x3_weights_f32(w: torch.Tensor) -> torch.Tensor:
+    """K5's f32 B operand: (Cout, C, 3, 3) -> (Cout/128 tiles, 3 ky, C/16
+    chunks, 2 parts (TF32 hi, lo), 3 kx, 4 K-groups, 128 output channels, 4
+    channels), both counts rounded up with zeros; one (tile, ky, chunk)
+    block is a stage's weights (see `_pack_f32` for the channel order)."""
+    t = _pack_f32(w, K5_CHUNK_F32, (1, 7, 3, 0, 8, 4, 6, 2, 5))
+    return t.reshape(*t.shape[:5], K5_CHUNK_F32 // 4, TILE_N, 4)
+
+
+def pack_conv3x3_im2col_weights_f32(w: torch.Tensor) -> torch.Tensor:
+    """K6's f32 B operand: (Cout, C, 3, 3) -> (Cout/128 tiles, 9 taps, C/32
+    chunks, 2 parts (TF32 hi, lo), 8 K-groups, 128 output channels, 4
+    channels), tap = kx * 3 + ky, both counts rounded up with zeros; one
+    (tile, tap, chunk) block is a K-tile."""
+    t = _pack_f32(w, K6_CHUNK_F32, (1, 8, 7, 3, 0, 4, 6, 2, 5))
+    return t.reshape(t.shape[0], 9, *t.shape[3:5], K6_CHUNK_F32 // 4, TILE_N, 4)
+
+
+PACKERS = {
+    ("conv3x3", torch.bfloat16): pack_conv3x3_weights,
+    ("conv3x3_im2col", torch.bfloat16): pack_conv3x3_im2col_weights,
+    ("conv3x3", torch.float32): pack_conv3x3_weights_f32,
+    ("conv3x3_im2col", torch.float32): pack_conv3x3_im2col_weights_f32,
+}
 
 
 def pad_channels8(x: torch.Tensor) -> torch.Tensor:
@@ -107,17 +166,9 @@ def _check_conv_args(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
 
 def kernel_operands(name: str, x: torch.Tensor, w: torch.Tensor):
     """(x, weights) as kernel `name` ("conv3x3" or "conv3x3_im2col") takes
-    them. bf16: x with its channels padded to a multiple of 8, and the packed
-    bf16 weights. f32: x, and the f32 weights as (ky, kx, C, Cout), the TPU
-    kernel's HWIO (K5), or as the (9C, Cout) matrix of rows (kx*3 + ky)*C +
-    c, kx-major as `_im2col_weights` orders the TPU kernel's patch columns
-    (K6)."""
-    if x.dtype == torch.bfloat16:
-        pack = pack_conv3x3_weights if name == "conv3x3" else pack_conv3x3_im2col_weights
-        return pad_channels8(x), pack(w)
-    if name == "conv3x3":
-        return x, w.float().permute(2, 3, 1, 0).contiguous()
-    return x, w.float().permute(3, 2, 1, 0).reshape(9 * w.shape[1], w.shape[0]).contiguous()
+    them: x with its channels zero-padded to a multiple of 8, and the
+    weights packed for x's dtype (`PACKERS`)."""
+    return pad_channels8(x), PACKERS[name, x.dtype](w)
 
 
 def launch_kernel(name: str, x: torch.Tensor, wt: torch.Tensor, b: torch.Tensor, relu: bool) -> torch.Tensor:

@@ -9,10 +9,13 @@ each VGG-16 layer shape below it prints one JSON line per implementation:
   * `im2col`: K6 (`ops/conv.conv3x3_im2col`), on block2.
 
 Each line has `ms` (mean of `--reps` warm calls, timed with CUDA events),
-`tflops` and `mfu`, the share of the card's peak for the type: 989 TFLOP/s
-in bf16 (tensor cores) and 67 TFLOP/s in f32 (CUDA cores), NVIDIA's H100
-SXM data sheet, dense. In f32 cuDNN's TF32 is turned off, so every row
-computes in f32. All inputs are made on the card from a seeded generator.
+`tflops` and `mfu`, the share of the card's fastest rate for the type's
+precision (NVIDIA's H100 SXM data sheet, dense): 989 TFLOP/s in bf16 on the
+tensor cores; in f32, 494.7 / 3 TFLOP/s, the TF32 tensor-core rate spent
+three times for each f32-grade product (3xTF32, which K5 and K6 run). f32
+rows also carry `mfu_cuda_cores`, the share of the CUDA cores' 67 TFLOP/s.
+In f32 cuDNN's TF32 is turned off, so every row computes to f32 precision.
+All inputs are made on the card from a seeded generator.
 
 Left out of the JAX script: its `s2dw` and `p_*` rows time
 `ops/conv_s2d.py`, a layout rewrite for the TPU's matrix unit, which is not
@@ -39,7 +42,8 @@ import torch.nn.functional as F
 
 from fasterrcnn_torch.ops import conv as conv_ops
 
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 494.7e12 / 3}  # f32: 3xTF32 on the tensor cores
+CUDA_CORE_F32_FLOPS = 67e12
 
 # (name, batch cap, H, W, C, Cout): the VGG-16 layers at the 608x800 canvas,
 # with the JAX script's batch cap for block2.
@@ -58,10 +62,13 @@ def library_conv(x: torch.Tensor, w_cl: torch.Tensor, b: torch.Tensor) -> torch.
 
 def conv_close(got: torch.Tensor, want: torch.Tensor):
     """The tolerance of K5 and K6 against `conv3x3_plain`: they sum the 9*C
-    products in f32 in another order than cuDNN (TF32 off). In f32 each
-    output may differ by 1e-4 of the largest; in bf16, after each side's one
-    rounding, by one bf16 step of the value and that f32 noise (1e-5 of the
-    largest). Returns (ok, max abs err, max |plain|, and in bf16 the most
+    products in f32 in another order than cuDNN (TF32 off), and in f32 each
+    product is 3xTF32's (x and w split into TF32 hi and lo parts, the lo.lo
+    term dropped: within 2^-22 of the f32 product), so each output may
+    differ by 1e-4 of the largest (3xTF32 measures ~3e-7 of it on the CPU
+    replay; one TF32 pass, ~3e-4, would fail). In bf16, after each side's
+    one rounding, by one bf16 step of the value and that f32 noise (1e-5 of
+    the largest). Returns (ok, max abs err, max |plain|, and in bf16 the most
     bf16 steps of the value by which an error exceeds the f32 noise)."""
     bf16 = want.dtype == torch.bfloat16
     got, want = got.float(), want.float()
@@ -126,6 +133,8 @@ def run(batch: int, dtype: torch.dtype, reps: int, device: torch.device,
                 "mfu": flops / (ms / 1e3) / PEAK_FLOPS[dtype] if device.type == "cuda" else None,
                 "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
             }
+            if dtype == torch.float32:  # the slower f32 rate, beside it under its own name
+                row["mfu_cuda_cores"] = flops / (ms / 1e3) / CUDA_CORE_F32_FLOPS if device.type == "cuda" else None
             print(json.dumps(row), flush=True)
             rows.append(row)
         del x, wt, bias, w_cl, impls

@@ -447,15 +447,20 @@ def test_cuda_conv_kernels_match_plain(cuda, dtype, relu, kernel, shape):
     ok, err, _, _ = profile_conv.conv_close(got, want)
     assert ok, f"max abs err {err}"
     # No atomics: a second launch must give the same bits (a stage of the
-    # bf16 kernels' ring overwritten while wgmma reads it would not).
+    # ring, or an f32 kernel's TF32 A fragment registers, overwritten while
+    # a wgmma reads it would not).
     assert torch.equal(fn(x, wt, bias, relu=relu), got)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("operand", ["BF16", "TF32"])
 @pytest.mark.parametrize("kernel", ["conv3x3", "conv3x3_im2col"])
-def test_cuda_conv_libraries_run_bf16_on_the_tensor_cores(cuda, kernel):
-    """The built library holds warpgroup MMA instructions (HGMMA in SASS)."""
-    assert _build.sass_count(kernel, "HGMMA") > 0
+def test_cuda_conv_libraries_run_bf16_on_the_tensor_cores(cuda, kernel, operand):
+    """The built library holds warpgroup MMA instructions (HGMMA in SASS) of
+    each input type: BF16 for the bf16 path, TF32 for the f32 path's
+    3xTF32 products."""
+    opcodes = _build.sass_opcodes(kernel)
+    assert sum(n for op, n in opcodes.items() if op.startswith("HGMMA.") and operand in op.split(".")) > 0
 
 
 @pytest.mark.cuda
