@@ -10,8 +10,8 @@ result line):
      in the checkout (one nvcc per source, in parallel); print the count of
      HGMMA (tensor-core warpgroup MMA) instructions in each conv library,
      and of those with a TF32 modifier (the f32 paths' 3xTF32 products), of
-     128-bit global loads in K2's and of vector f32 reductions in K3's, and
-     fail if any is 0.
+     128-bit global loads in K2's and K4's and of vector f32 reductions in
+     K3's, and fail if any is 0.
   3. kernel parity: each kernel against its plain PyTorch version on the
      card, at its paths' shapes: NMS keep-masks identical, and identical
      again on a second launch, at the cases of
@@ -20,15 +20,17 @@ result line):
      (4 x 12000 -> 2000) on spread boxes and, as `train_scene`, on boxes
      piled onto a few objects (accepts stall below max_keep), each with its
      mask scratch and peak memory; RoI crop+pool, taps (K2)
-     and dense weight sheets (K4), on a (4, 38, 50, 512) map x 300 RoIs
-     identical in f32 and in bf16 (each rounds where its TPU kernel rounds,
-     and so does its plain version, so no value may differ), and K2 equal
-     to K4 in f32; the RoI backward on the same map x 128 RoIs (the train
-     shape), normal and ReLU'd, f32 and bf16, within the tolerance of
-     `backward_close`; K2 and K3 again at C=1024, at C=1030 (scalar lanes)
-     and on a map one element past a 16-byte boundary; the conv kernels K5 (blocks 5, 4 and 3:
-     4x38x50x512 -> 512, 4x76x100x512 -> 512, 4x152x200x256 -> 256) and K6
-     (block 2, 4x304x400x128 -> 128, and conv2_1's 64 -> 128), f32 and
+     and the fused kernel's rounding (K4, on K2's column walk), on a
+     (4, 38, 50, 512) map x 300 RoIs identical in f32 and in bf16 (each
+     rounds where its TPU kernel rounds, and so does its plain version, so
+     no value may differ), and K2 equal to K4 in f32; the RoI backward on
+     the same map x 128 RoIs (the train shape), normal and ReLU'd, f32 and
+     bf16, within the tolerance of `backward_close`; K2, K3 and K4 again at
+     C=1024, at C=1030 (scalar lanes) and on a map one element past a
+     16-byte boundary, and K2 and K4 on a (1, 38, 160, 512) map; the conv
+     kernels K5 (blocks 5, 4 and 3: 4x38x50x512 -> 512, 4x76x100x512 ->
+     512, 4x152x200x256 -> 256) and K6 (block 2, 4x304x400x128 -> 128,
+     and conv2_1's 64 -> 128), f32 and
      bf16 (both on the tensor cores, f32 as 3xTF32), with and without ReLU,
      within `profile_conv.conv_close`, each case launched twice and required
      to give the same bits; CUDA
@@ -55,7 +57,8 @@ result line):
   5b. the fused RoI op (K4's path): `roi_pool_fused`, the public op, on
      the predict path's own f32 feature map and RPN proposals; it must
      launch K4 and equal `roi_pool_fused_plain` and `roi_pool_taps` there,
-     bit for bit.
+     bit for bit, and on the same map cast to bf16 equal
+     `roi_pool_fused_plain`.
   6b. conv A/B (K5's and K6's path): `fasterrcnn_torch.scripts.profile_conv`
      at --batch 4, bf16 and f32: every row timed, K5 and K6 launched (phase
      3 holds each kernel against its plain version at each of these
@@ -244,11 +247,11 @@ def roi_forward_parity(dev, rng, fm32, img_h, img_w, p=300):
         vs_taps = float((fused.float() - got.float()).abs().max().item())
         print(f"roi_pool_fused {dtype} ({b}x{h}x{w}x{c}, {p} RoIs): max_abs_err {err!r}, "
               f"{mismatches} of {fused.numel()} values differ (tolerance: identical); against roi_pool_taps "
-              f"max_abs_err {vs_taps!r}" + (" (tolerance 1e-5)" if dtype == torch.float32 else
+              f"max_abs_err {vs_taps!r}" + (" (tolerance: identical)" if dtype == torch.float32 else
                                             " (bf16: K4 rounds the x-sum once, K2 each x-tap too)"), flush=True)
         check(mismatches == 0, f"roi_pool_fused {dtype}: {mismatches} values differ, max_abs_err {err}")
         if dtype == torch.float32:
-            check(vs_taps <= 1e-5, f"roi_pool_fused vs roi_pool_taps f32: max_abs_err {vs_taps}")
+            check(torch.equal(fused, got), f"roi_pool_fused vs roi_pool_taps f32: max_abs_err {vs_taps}")
         results[f"fused_{tag}"] = dict(
             max_abs_err=err, mismatches=mismatches, vs_taps_max_abs_err=vs_taps,
             ms=time_ms(lambda: roi_ops.roi_pool_fused(fm, rois, norm), 10),
@@ -259,42 +262,58 @@ def roi_forward_parity(dev, rng, fm32, img_h, img_w, p=300):
 
 
 def roi_edge_parity(dev, rng):
-    """K2 identical to its plain version and K3 within `backward_close`, in
-    f32 and bf16, where the lanes change: ResNet's C=1024 at the predict
-    (K2) and train (K3) RoI counts, C=1030 (no whole 16-byte lane: scalar
-    lanes), and a map that starts one element past a 16-byte boundary."""
+    """K2 and K4 identical to their plain versions (and K4 to K2 in f32),
+    and K3 within `backward_close`, in f32 and bf16, where the lanes change:
+    ResNet's C=1024 at the predict (K2, K4) and train (K3) RoI counts,
+    C=1030 (no whole 16-byte lane: scalar lanes), and a map that starts one
+    element past a 16-byte boundary; and K2 and K4 on a (1, 38, 160, 512)
+    map x 300 RoIs, wider than a dense-sheet K4 could hold in shared memory."""
     import torch
     from fasterrcnn_torch.ops import roi as roi_ops
     from fasterrcnn_torch.scripts import profile_roi
 
-    b, h, w = 4, 38, 50
-    norm = torch.from_numpy(profile_roi.roi_norm(b)).to(dev)
+    h, img_h = 38, 600.0
     results = {}
-    for label, c, misaligned in (("c1024", 1024, False), ("c1030", 1030, False), ("misaligned", 512, True)):
+    cases = (("c1024", 4, 50, 1024, False), ("c1030", 4, 50, 1030, False), ("misaligned", 4, 50, 512, True),
+             ("w160", 1, 160, 512, False))
+    for label, b, w, c, misaligned in cases:
+        img_w = 16.0 * w  # 800 at w = 50; the real grid is 37 x w
+        norm = torch.tensor([[(37 - 1) / img_h, (w - 1) / img_w]] * b, device=dev)
         fm32 = torch.from_numpy(rng.normal(size=(b, h, w, c)).astype(np.float32)).to(dev)
-        for p, kernel in ((300, "roi_pool_taps"), (128, "roi_pool_taps_bwd")):
-            rois = torch.from_numpy(profile_roi.draw_rois(rng, b, p)).to(dev)
+        passes = [(300, ("roi_pool_taps", "roi_pool_fused"))]
+        if label != "w160":
+            passes.append((128, ("roi_pool_taps_bwd",)))
+        for p, kernels in passes:
+            rois = torch.from_numpy(profile_roi.draw_rois(rng, b, p, img_h, img_w)).to(dev)
             g32 = torch.from_numpy(rng.normal(size=(b, p, 7, 7, c)).astype(np.float32)).to(dev)
             for dtype in (torch.float32, torch.bfloat16):
                 fm = fm32.to(dtype)
                 if misaligned:
                     fm = torch.empty(fm.numel() + 1, dtype=dtype, device=dev)[1:].view(fm.shape).copy_(fm)
                 lanes = roi_ops.lane_width(c, fm)
-                tag = f"{label}_{kernel}_{'f32' if dtype == torch.float32 else 'bf16'}"
-                if kernel == "roi_pool_taps":
-                    got, want = roi_ops.roi_pool_taps(fm, rois, norm), roi_ops.roi_pool_features(fm, rois, norm)
-                    ok, err = torch.equal(got, want), float((got.float() - want.float()).abs().max())
+                for kernel in kernels:
+                    tag = f"{label}_{kernel}_{'f32' if dtype == torch.float32 else 'bf16'}"
                     rule = "identical"
-                else:
-                    g = g32.to(dtype)
-                    ok, err = profile_roi.backward_close(roi_ops.roi_pool_taps_bwd(fm, rois, norm, g),
-                                                         roi_ops.roi_pool_taps_bwd_plain(fm, rois, norm, g))
-                    rule = "backward_close"
-                torch.cuda.synchronize()
-                print(f"{kernel} {tag} ({b}x{h}x{w}x{c}, {p} RoIs, lane width {lanes}, map at "
-                      f"{fm.data_ptr() % 16} bytes past 16): max_abs_err {err!r} (tolerance: {rule})", flush=True)
-                check(ok, f"{kernel} {tag}: outside tolerance, max_abs_err {err}")
-                results[tag] = dict(max_abs_err=err, lane_width=lanes, shape=[b, h, w, c, p])
+                    if kernel == "roi_pool_taps":
+                        taps = got = roi_ops.roi_pool_taps(fm, rois, norm)
+                        want = roi_ops.roi_pool_features(fm, rois, norm)
+                        ok, err = torch.equal(got, want), float((got.float() - want.float()).abs().max())
+                    elif kernel == "roi_pool_fused":
+                        got, want = roi_ops.roi_pool_fused(fm, rois, norm), roi_ops.roi_pool_fused_plain(fm, rois, norm)
+                        ok, err = torch.equal(got, want), float((got.float() - want.float()).abs().max())
+                        if dtype == torch.float32:
+                            ok = ok and torch.equal(got, taps)
+                            rule = "identical, and identical to roi_pool_taps"
+                    else:
+                        g = g32.to(dtype)
+                        ok, err = profile_roi.backward_close(roi_ops.roi_pool_taps_bwd(fm, rois, norm, g),
+                                                             roi_ops.roi_pool_taps_bwd_plain(fm, rois, norm, g))
+                        rule = "backward_close"
+                    torch.cuda.synchronize()
+                    print(f"{kernel} {tag} ({b}x{h}x{w}x{c}, {p} RoIs, lane width {lanes}, map at "
+                          f"{fm.data_ptr() % 16} bytes past 16): max_abs_err {err!r} (tolerance: {rule})", flush=True)
+                    check(ok, f"{kernel} {tag}: outside tolerance, max_abs_err {err}")
+                    results[tag] = dict(max_abs_err=err, lane_width=lanes, shape=[b, h, w, c, p])
     return results
 
 
@@ -668,7 +687,8 @@ def phase_fused_roi_op(engine, images, image_hw, counters):
     own feature map and RPN proposals (B=4 on the 608x800 canvas, 300
     proposals an image), as a user comparing it with `roi_pool_taps` calls
     it. It must launch K4 and, in f32, equal both its plain version and the
-    taps kernel there, bit for bit."""
+    taps kernel there, bit for bit; on the same map cast to bf16 (after the
+    counted run) it must equal its plain version."""
     import torch
     from fasterrcnn_torch.models import faster_rcnn as frcnn
     from fasterrcnn_torch.ops import roi as roi_ops
@@ -689,6 +709,9 @@ def phase_fused_roi_op(engine, images, image_hw, counters):
         launches = path_launches(counters, ("roi_pool_fused",), "fused RoI op path")
         plain = roi_ops.roi_pool_fused_plain(fm, props.boxes, norm)
         taps = roi_ops.roi_pool_taps(fm, props.boxes, norm)
+        fm16 = fm.bfloat16()
+        fused16 = roi_ops.roi_pool_fused(fm16, props.boxes, norm)
+        plain16 = roi_ops.roi_pool_fused_plain(fm16, props.boxes, norm)
     check(fm.dtype == torch.float32 and bool(torch.isfinite(fused).all()), f"fused RoI op: {fm.dtype}, non-finite")
     print(f"fused RoI op on the predict path's map {tuple(fm.shape)} (max |map| {float(fm.abs().max())!r}, "
           f"max |pooled| {float(fused.abs().max())!r}) and {tuple(props.boxes.shape)} proposals: max_abs_err "
@@ -696,6 +719,10 @@ def phase_fused_roi_op(engine, images, image_hw, counters):
           f"{float((fused - taps).abs().max())!r} (tolerance: identical to both)", flush=True)
     check(torch.equal(fused, plain), "fused RoI op: differs from roi_pool_fused_plain")
     check(torch.equal(fused, taps), "fused RoI op: differs from roi_pool_taps in f32")
+    err16 = float((fused16.float() - plain16.float()).abs().max())
+    print(f"fused RoI op on the same map cast to bf16: max_abs_err against roi_pool_fused_plain {err16!r} "
+          f"(tolerance: identical)", flush=True)
+    check(torch.equal(fused16, plain16), "fused RoI op: bf16 differs from roi_pool_fused_plain")
     return launches
 
 
@@ -900,15 +927,17 @@ def main() -> None:
           f"{ {k: {op: n for op, n in v.items() if op.startswith('HGMMA')} for k, v in conv_sass.items()} }", flush=True)
     check(all(n > 0 for n in hgmma.values()), f"a conv library holds no HGMMA: {hgmma}")
     check(all(n > 0 for n in hgmma_tf32.values()), f"a conv library holds no TF32 HGMMA: {hgmma_tf32}")
-    roi_sass = {name: _build.sass_opcodes(name) for name in ("roi_pool_taps", "roi_pool_taps_bwd")}
-    vector_loads = sum(n for op, n in roi_sass["roi_pool_taps"].items() if op.startswith("LDG") and ".128" in op)
+    roi_sass = {name: _build.sass_opcodes(name) for name in ("roi_pool_taps", "roi_pool_taps_bwd", "roi_pool_fused")}
+    vector_loads = {name: sum(n for op, n in roi_sass[name].items() if op.startswith("LDG") and ".128" in op)
+                    for name in ("roi_pool_taps", "roi_pool_fused")}
     vector_reductions = sum(n for op, n in roi_sass["roi_pool_taps_bwd"].items()
                             if op.startswith(("RED", "ATOM")) and re.search(r"\.F32x[24]\b", op))
-    print(f"roi_pool_taps: {vector_loads} 128-bit global loads (LDG.*.128); roi_pool_taps_bwd: {vector_reductions} "
+    print(f"128-bit global loads (LDG.*.128): {vector_loads}; roi_pool_taps_bwd: {vector_reductions} "
           f"vector f32 reductions (RED/ATOM *.F32x2 and *.F32x4) (cuobjdump -sass); global memory opcodes "
           f"{ {k: {op: n for op, n in v.items() if op.startswith(('LDG', 'STG', 'RED', 'ATOM'))} for k, v in roi_sass.items()} }",
           flush=True)
-    check(vector_loads > 0 and vector_reductions > 0, "the RoI libraries hold no 128-bit loads or vector reductions")
+    check(all(n > 0 for n in vector_loads.values()) and vector_reductions > 0,
+          "the RoI libraries hold no 128-bit loads or vector reductions")
 
     counters = (
         nms_ops.nms_keep_mask, roi_ops.roi_pool_taps, roi_ops.roi_pool_taps_bwd, roi_ops.roi_pool_fused,
@@ -975,7 +1004,7 @@ def main() -> None:
             "library_ms": None,
             "shape": parity["roi_f32"]["shape"],
             "launches_by_path": by_path("roi_pool_taps"),
-            "ldg128_instructions": vector_loads,
+            "ldg128_instructions": vector_loads["roi_pool_taps"],
             "bf16": parity["roi_bf16"],
             **{k: v for k, v in parity.items() if k.endswith(("_roi_pool_taps_f32", "_roi_pool_taps_bf16"))},
         },
@@ -1003,7 +1032,9 @@ def main() -> None:
             "library_ms": None,
             "shape": parity["fused_f32"]["shape"],
             "launches_by_path": by_path("roi_pool_fused"),
+            "ldg128_instructions": vector_loads["roi_pool_fused"],
             "bf16": parity["fused_bf16"],
+            **{k: v for k, v in parity.items() if k.endswith(("_roi_pool_fused_f32", "_roi_pool_fused_bf16"))},
         },
         {
             "name": "conv3x3",

@@ -67,7 +67,7 @@ KERNELS: Dict[str, Kernel] = {
     ),
     "roi_pool_fused": Kernel(
         "roi_pool_fused.cu", ("-fmad=false",), "roi_pool_fused_launch",
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     ),
     "conv3x3": Kernel(
         "conv3x3.cu", (), "conv3x3_launch",

@@ -1,8 +1,9 @@
 // Sample positions and bilinear samples of the RoI crop (14x14 samples per
-// RoI, 2x2 max pool -> 7x7), shared by the forward kernel (roi_pool_taps.cu)
-// and its backward (roi_pool_taps_bwd.cu). The backward recomputes the
-// forward's samples to find the argmax of each 2x2 window, so both must run
-// exactly this arithmetic: one header, both built with -fmad=false.
+// RoI, 2x2 max pool -> 7x7), shared by the forward kernel (roi_pool_taps.cu),
+// its backward (roi_pool_taps_bwd.cu) and the fused forward
+// (roi_pool_fused.cu). The backward recomputes the forward's samples to find
+// the argmax of each 2x2 window, so both must run exactly this arithmetic:
+// one header, all built with -fmad=false.
 //
 // Semantics: RoI corners (pixels) are scaled onto the real feature grid by
 // norm = ((fh-1)/img_h, (fw-1)/img_w); 14 sample positions per axis span each
@@ -14,10 +15,13 @@
 // :219-220); a y-tap product of two bf16 values is exact in f32, so the
 // y-sum rounds once in f32 and once to bf16, as its f32-accumulated matmul
 // rounds (:196-202); each x-tap product is rounded to bf16 and so is the
-// two-tap sum, as its bf16 x-taps compute them (:218-221). For f32 every
-// rounding is the f32 operation's own. The TPU kernel clamps the low x-tap
-// to [0, W-2]; here the high tap is skipped at pos == size-1 instead, on
-// both axes, which gives the same value (its weight there is exactly 0).
+// two-tap sum, as its bf16 x-taps compute them (:218-221). The fused
+// kernel's TPU original (_roi_kernel, :124-133) sums the x-taps in f32 and
+// rounds once; walk_pairs<T, V, /*kRoundTaps=*/false> rounds so. For f32
+// every rounding is the f32 operation's own, and the two policies agree. The
+// TPU kernel clamps the low x-tap to [0, W-2]; here the high tap is skipped
+// at pos == size-1 instead, on both axes, which gives the same value (its
+// weight there is exactly 0).
 
 #pragma once
 
@@ -70,8 +74,8 @@ __device__ __forceinline__ void sample_positions(Samples& smp, const float* __re
 
 // --- Lanes: V consecutive channels of one pixel, held in f32 -------------
 //
-// A thread of K2 or K3 works on V channels: 4 f32 or 8 bf16 in K2 (one
-// 16-byte access), 2 f32 or 4 bf16 in K3 (8 bytes), or 1 where C is not a
+// A thread of K2, K3 or K4 works on V channels: 4 f32 or 8 bf16 in K2 and
+// K4 (one 16-byte access), 2 f32 or 4 bf16 in K3 (8 bytes), or 1 where C is not a
 // multiple of that or a pointer is not aligned (the wrapper picks V). Each
 // lane runs the scalar arithmetic above channel by channel, so V changes
 // no value.
@@ -246,8 +250,11 @@ struct RowWalk {
 
   // The bilinear sample that completes at the current column: over the
   // previous and current columns if it has a high tap, else the current
-  // one alone; 0 outside the map. round(w_lo * row(x)), then
-  // round(that + round(w_hi * row(x + 1))).
+  // one alone; 0 outside the map. With kRoundTaps (K2, K3):
+  // round(w_lo * row(x)), then round(that + round(w_hi * row(x + 1)));
+  // without (K4): round(w_lo * row(x) + w_hi * row(x + 1)), the f32 sum
+  // rounded once.
+  template <bool kRoundTaps = true>
   __device__ __forceinline__ void sample(bool x_inside, bool has_hi, float wx_lo, float wx_hi,
                                          float (&v)[V]) const {
     if (!inside || !x_inside) {
@@ -255,16 +262,24 @@ struct RowWalk {
       for (int i = 0; i < V; ++i) v[i] = 0.0f;
       return;
     }
-    float u[V];
 #pragma unroll
     for (int i = 0; i < V; ++i) v[i] = wx_lo * (has_hi ? prev[i] : cur[i]);
-    round_lanes<T, V>(v);
-    if (has_hi) {
+    if constexpr (kRoundTaps) {
+      round_lanes<T, V>(v);
+      if (has_hi) {
+        float u[V];
 #pragma unroll
-      for (int i = 0; i < V; ++i) u[i] = wx_hi * cur[i];
-      round_lanes<T, V>(u);
+        for (int i = 0; i < V; ++i) u[i] = wx_hi * cur[i];
+        round_lanes<T, V>(u);
 #pragma unroll
-      for (int i = 0; i < V; ++i) v[i] = v[i] + u[i];
+        for (int i = 0; i < V; ++i) v[i] = v[i] + u[i];
+        round_lanes<T, V>(v);
+      }
+    } else {
+      if (has_hi) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) v[i] = v[i] + wx_hi * cur[i];
+      }
       round_lanes<T, V>(v);
     }
   }
@@ -274,8 +289,9 @@ struct RowWalk {
 // calls done(j, t0, t1, b0, b1) for each pooled column, with j the walk
 // position of its second sample (the first is j - 1; the column is
 // wk.q(j) / 2) and t0, t1 (top row) and b0, b1 (bottom row) the values of
-// its even and odd samples.
-template <typename T, int V, typename Done>
+// its even and odd samples; the x-taps rounded as kRoundTaps says
+// (RowWalk::sample).
+template <typename T, int V, bool kRoundTaps = true, typename Done>
 __device__ __forceinline__ void walk_pairs(const XWalk& wk, const Samples& smp, const T* lane_map, int py, int h,
                                            int w, int c, Done&& done) {
   RowWalk<T, V> rows[2] = {RowWalk<T, V>(smp, lane_map, 2 * py, h, w, c),
@@ -288,12 +304,12 @@ __device__ __forceinline__ void walk_pairs(const XWalk& wk, const Samples& smp, 
     const float wx_lo = smp.w_lo[kCrop + q], wx_hi = smp.w_hi[kCrop + q];
     if (j % 2 == 0) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r) rows[r].sample(inside, has_hi, wx_lo, wx_hi, first[r]);
+      for (int r = 0; r < 2; ++r) rows[r].template sample<kRoundTaps>(inside, has_hi, wx_lo, wx_hi, first[r]);
       return;
     }
     float second[2][V];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) rows[r].sample(inside, has_hi, wx_lo, wx_hi, second[r]);
+    for (int r = 0; r < 2; ++r) rows[r].template sample<kRoundTaps>(inside, has_hi, wx_lo, wx_hi, second[r]);
     if (wk.up) {  // the even sample came first
       done(j, first[0], second[0], first[1], second[1]);
     } else {
@@ -319,7 +335,7 @@ __device__ __forceinline__ void walk_pairs(const XWalk& wk, const Samples& smp, 
   }
 }
 
-// The block of K2 and K3: 32 lanes (x) by the 7 pooled rows (y), one warp
+// The block of K2, K3 and K4: 32 lanes (x) by the 7 pooled rows (y), one warp
 // a pooled row, for one RoI and one chunk of 32 lanes. The seven warps walk
 // neighbouring sample rows of one RoI side by side, so a map row that two
 // of them read comes from L2 once and from L1 after.

@@ -13,11 +13,13 @@ PyTorch, on a CPU tensor; its backward is `roi_pool_taps_bwd`, which launches
 `ops/kernels/csrc/roi_pool_taps_bwd.cu` on a CUDA tensor and runs
 `roi_pool_taps_bwd_plain` on a CPU tensor. The feature map alone gets a
 cotangent: RoIs are constants of the train step. `roi_pool_fused` (forward
-only; no model calls it) computes the same crop + pool by dense weight
-sheets, launching `ops/kernels/csrc/roi_pool_fused.cu` on a CUDA tensor and
-running `roi_pool_fused_plain` on a CPU tensor. In bf16 each rounds where its
-TPU kernel rounds. All take a fixed number of padded RoIs; rows of invalid
-RoIs are garbage that callers mask out.
+only; no model calls it) computes the same crop + pool with the rounding of
+the TPU's dense weight-sheet kernel, launching
+`ops/kernels/csrc/roi_pool_fused.cu` (the taps kernel's column walk with
+that rounding) on a CUDA tensor and running `roi_pool_fused_plain` (the
+sheets) on a CPU tensor. In bf16 each rounds where its TPU kernel rounds.
+All take a fixed number of padded RoIs; rows of invalid RoIs are garbage
+that callers mask out.
 """
 
 from __future__ import annotations
@@ -198,7 +200,7 @@ def _check_roi_args(feature_map: torch.Tensor, rois: torch.Tensor, norm: torch.T
 
 
 def lane_width(c: int, *tensors: torch.Tensor, channels: Optional[int] = None) -> int:
-    """Channels a thread of K2 or K3 works on: `channels` (default 16 bytes
+    """Channels a thread of K2, K3 or K4 works on: `channels` (default 16 bytes
     of the first tensor's type: 4 f32 or 8 bf16), so that a thread's run of
     them is one vector access, when C is a multiple of it and every tensor's
     data is aligned to such a run of its own type; else 1 (scalar lanes, the
@@ -218,14 +220,12 @@ def _launch_forward(name: str, feature_map: torch.Tensor, rois: torch.Tensor, no
     norm = norm.float().contiguous()
     p = rois.shape[1]
     out = torch.empty((b, p, OUTPUT_SIZE, OUTPUT_SIZE, c), dtype=fm.dtype, device=fm.device)
-    # K2 takes its lane width; K4 has one layout.
-    lanes = (lane_width(c, fm, out),) if name == "roi_pool_taps" else ()
     with torch.cuda.device(fm.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.launch(
             name,
             fm.data_ptr(), rois.data_ptr(), norm.data_ptr(), out.data_ptr(),
-            b, h, w, c, p, int(fm.dtype == torch.bfloat16), *lanes, stream,
+            b, h, w, c, p, int(fm.dtype == torch.bfloat16), lane_width(c, fm, out), stream,
         )
     return out
 
@@ -315,14 +315,20 @@ roi_pool_taps.launches = 0
 def roi_pool_fused(
     feature_map: torch.Tensor, rois: torch.Tensor, norm: torch.Tensor
 ) -> torch.Tensor:
-    """RoI crop + pool by dense weight-sheet contractions (K4):
+    """RoI crop + pool with the dense weight-sheet kernel's rounding (K4):
     (B,H,W,C) f32/bf16, (B,P,4), (B,2) -> (B,P,7,7,C) in the map's type.
 
     The counterpart of `roi_pool_fused_pallas`, kept, as there, as the
     reference point against the taps kernel; no model calls it. Forward only:
     the JAX op defines no gradient, so a map that requires grad raises. CPU
     tensors take `roi_pool_fused_plain`; CUDA tensors launch
-    `ops/kernels/csrc/roi_pool_fused.cu`.
+    `ops/kernels/csrc/roi_pool_fused.cu`, which walks each RoI's tap columns
+    as the taps kernel does and sums each sample's two x-tap products in f32
+    before one rounding, with the lane width of `lane_width`. A sample there
+    reads only its taps: a map that holds inf or NaN outside a RoI's taps
+    does not spread it into that RoI, as the plain version's sheets do
+    through a zero weight (0 * inf is NaN). On finite maps the two are equal
+    bit for bit.
     """
     _check_roi_args(feature_map, rois, norm)
     if feature_map.requires_grad and torch.is_grad_enabled():

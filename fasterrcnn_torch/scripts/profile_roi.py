@@ -1,8 +1,9 @@
-"""K2 and K3, the RoI crop+pool kernels, at the main paths' shapes.
+"""K2, K3 and K4, the RoI crop+pool kernels, at the main paths' shapes.
 
 For each case below the script holds the kernel against its plain version
 (K2 identical to `roi_pool_features`; K3 within `backward_close` of
-`roi_pool_taps_bwd_plain`; otherwise it exits 1), then prints one JSON line
+`roi_pool_taps_bwd_plain`; K4 identical to `roi_pool_fused_plain`;
+otherwise it exits 1), then prints one JSON line
 per (kernel, case, dtype, map): the time of the wrapper's call (`ms`, the
 mean of `--reps` warm calls, CUDA events: for K3 that includes zeroing the
 f32 accumulator and the cast back), the least time the card could take
@@ -13,6 +14,8 @@ kernel's time per call, from torch.profiler.
   predict  K2 at (4, 38, 50, 512) x 300 RoIs an image: the predict path
   train    K3 at (4, 38, 50, 512) x 128 RoIs an image: the train step
   c1024    both at (4, 38, 50, 1024), x 300 and x 128: ResNet's C4 width
+  fused    K4 (`roi_pool_fused`, on no model's path) at (4, 38, 50, 512)
+           and (4, 38, 50, 1024) x 300 RoIs, with K2's bound
 
 Each in f32 and bf16, on a normal map (`normal`) and on a ReLU'd one
 (`relu`, as VGG's conv5_3 output is). The map and the cotangent are normal
@@ -26,7 +29,7 @@ kernels on the same inputs:
 `PYTHONPATH=<checkout> python fasterrcnn_torch/scripts/profile_roi.py`.
 
 Usage (on the card; no fallback):
-    python -m fasterrcnn_torch.scripts.profile_roi [--reps 20] [--profile] [--cases predict,train,c1024]
+    python -m fasterrcnn_torch.scripts.profile_roi [--reps 20] [--profile] [--cases predict,train,c1024,fused]
 """
 
 from __future__ import annotations
@@ -50,7 +53,11 @@ CASES = {
     "predict": (("roi_pool_taps", 512, 300),),
     "train": (("roi_pool_taps_bwd", 512, 128),),
     "c1024": (("roi_pool_taps", 1024, 300), ("roi_pool_taps_bwd", 1024, 128)),
+    "fused": (("roi_pool_fused", 512, 300), ("roi_pool_fused", 1024, 300)),
 }
+# The forward kernels: the wrapper and the plain version it must equal.
+FORWARDS = {"roi_pool_taps": ("roi_pool_taps", "roi_pool_features"),
+            "roi_pool_fused": ("roi_pool_fused", "roi_pool_fused_plain")}
 
 
 def draw_rois(rng, b: int, p: int, img_h: float = IMAGE_HW[0], img_w: float = IMAGE_HW[1]) -> np.ndarray:
@@ -101,9 +108,10 @@ def _bound(bytes_moved: float, ops: float) -> Dict[str, object]:
 
 
 def forward_bound(fm, rois, norm) -> Dict[str, object]:
-    """K2's least time: the map, RoIs and norm read once and the output
-    written once, or its operations (each sample inside the map: 2 rows of
-    2 y-taps and 2 x-taps, 3 operations a tap pair; then 3 maxes an output)."""
+    """K2's least time, and K4's (the same function): the map, RoIs and
+    norm read once and the output written once, or its operations (each
+    sample inside the map: 2 rows of 2 y-taps and 2 x-taps, 3 operations a
+    tap pair; then 3 maxes an output)."""
     b, h, w, c = fm.shape
     p = rois.shape[1]
     item = fm.element_size()
@@ -190,10 +198,12 @@ def run(reps: int, profile: bool, cases: Sequence[str]) -> List[Dict]:
                 for dtype in (torch.float32, torch.bfloat16):
                     fm = (torch.relu(fm32) if layout == "relu" else fm32).to(dtype)
                     g = g32.to(dtype)
-                    if kernel == "roi_pool_taps":
+                    if kernel in FORWARDS:
+                        op, plain = (getattr(roi_ops, name) for name in FORWARDS[kernel])
+
                         def fn():
-                            return roi_ops.roi_pool_taps(fm, rois, norm)
-                        got, want = fn(), roi_ops.roi_pool_features(fm, rois, norm)
+                            return op(fm, rois, norm)
+                        got, want = fn(), plain(fm, rois, norm)
                         ok, err = torch.equal(got, want), float((got.float() - want.float()).abs().max())
                         bound = forward_bound(fm, rois, norm)
                     else:

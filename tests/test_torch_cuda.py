@@ -395,12 +395,22 @@ def test_cuda_wrappers_reject_mixed_devices(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
-    "shape", [(4, 38, 50, 512, 300, 600.0, 800.0, 37, 50), (2, 12, 16, 200, 7, 160.0, 200.0, 10, 12)]
+    "shape,misaligned",
+    [
+        ((4, 38, 50, 512, 300, 600.0, 800.0, 37, 50), False), ((2, 12, 16, 200, 7, 160.0, 200.0, 10, 12), False),
+        # Where the lanes change: C=1024 (vector lanes), C=1030 (scalar), a
+        # map one element past a 16-byte boundary; and a map 160 cells wide.
+        ((4, 38, 50, 1024, 300, 600.0, 800.0, 37, 50), False), ((4, 38, 50, 1030, 300, 600.0, 800.0, 37, 50), False),
+        ((4, 38, 50, 512, 300, 600.0, 800.0, 37, 50), True), ((1, 38, 160, 512, 300, 600.0, 2560.0, 37, 160), False),
+    ],
 )
-def test_cuda_fused_roi_kernel_matches_plain(cuda, dtype, shape):
+def test_cuda_fused_roi_kernel_matches_plain(cuda, dtype, shape, misaligned):
     b, h, w, c, p, img_h, img_w, fh, fw = shape
     fm, rois, norm = roi_inputs(8, b, h, w, c, p, img_h, img_w, fh, fw)
     fm = torch.from_numpy(fm).to(cuda, dtype)
+    if misaligned:
+        fm = torch.empty(fm.numel() + 1, dtype=dtype, device=cuda)[1:].view(fm.shape).copy_(fm)
+        assert torch_roi.lane_width(c, fm) == 1
     rois, norm = torch.from_numpy(rois).to(cuda), torch.from_numpy(norm).to(cuda)
     before = torch_roi.roi_pool_fused.launches
     got = torch_roi.roi_pool_fused(fm, rois, norm)

@@ -1,6 +1,7 @@
 """Replays of the RoI kernels' geometry on the CPU.
 
-K2 (`csrc/roi_pool_taps.cu`) and K3 (`csrc/roi_pool_taps_bwd.cu`) run only
+K2 (`csrc/roi_pool_taps.cu`), K3 (`csrc/roi_pool_taps_bwd.cu`) and K4
+(`csrc/roi_pool_fused.cu`, K2's walk with the x-sum rounded once) run only
 on the card. What they decide on the host's behalf is replayed here in
 plain Python over torch tensors, control flow as the kernels run it:
 
@@ -18,19 +19,26 @@ plain Python over torch tensors, control flow as the kernels run it:
 
 The arithmetic is the kernels' own, lane by lane (f32 tensor operations,
 each rounded once, then to the map's type where the kernels round), so the
-forward replay must equal `roi_pool_features` bit for bit; the backward
+forward replay must equal `roi_pool_features` bit for bit, and K4's
+`roi_pool_fused_plain` and, in bf16, the Pallas fused kernel; the backward
 replay sums in another order than `roi_pool_taps_bwd_plain` and is held to
 the card test's tolerance (`backward_close`), and to the Pallas backward in
 interpret mode at the f32 tolerance of `tests/test_torch_train.py`.
+
+The last tests pin where the port's sample positions and the JAX package's
+part: a sample on a map's last cell, which XLA's rewrite of the positions
+under `jit` can put an ulp past it.
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from fasterrcnn_tpu.ops.pallas import roi_pallas
 from fasterrcnn_torch.ops import roi as torch_roi
-from fasterrcnn_torch.scripts.profile_roi import backward_close
+from fasterrcnn_torch.scripts.profile_roi import backward_close, roi_norm
 from tests.test_torch_cuda import edge_roi_inputs, roi_inputs
 
 CHUNK_LANES = 32  # kChunkLanes
@@ -116,19 +124,24 @@ class RowWalk:
             v = self.wy_lo * a
         self.prev, self.cur = self.cur, torch_roi._round_to(v, self.dtype)
 
-    def sample(self, x_inside, has_hi, wx_lo, wx_hi):
+    def sample(self, x_inside, has_hi, wx_lo, wx_hi, round_taps=True):
+        """round_taps (K2, K3): each x-tap product and the sum rounded to the
+        map's type; else (K4) the f32 sum of the products rounded once."""
         if not (self.inside and x_inside):
             return torch.zeros(self.image.shape[-1])
         r = lambda v: torch_roi._round_to(v, self.dtype)  # noqa: E731
-        v = r(wx_lo * (self.prev if has_hi else self.cur))
+        v = wx_lo * (self.prev if has_hi else self.cur)
+        if not round_taps:
+            return r(v + wx_hi * self.cur if has_hi else v)
+        v = r(v)
         if has_hi:
             v = r(v + r(wx_hi * self.cur))
         return v
 
 
-def walk_pairs(smp, image, py, dtype, done, rows_out=None):
+def walk_pairs(smp, image, py, dtype, done, rows_out=None, round_taps=True):
     """`walk_pairs`: calls done(px, up, t0, t1, b0, b1) for each pooled
-    column in walk order."""
+    column in walk order, the x-taps rounded as `round_taps` says."""
     w = image.shape[1]
     cells, wx_lo, wx_hi, inside = smp.axes[1]
     wk = XWalk(smp, w)
@@ -139,7 +152,7 @@ def walk_pairs(smp, image, py, dtype, done, rows_out=None):
         nonlocal first
         q = wk.q(j)
         has_hi = cells[q] + 1 < w
-        vals = [row.sample(inside[q], has_hi, wx_lo[q], wx_hi[q]) for row in rows]
+        vals = [row.sample(inside[q], has_hi, wx_lo[q], wx_hi[q], round_taps) for row in rows]
         if j % 2 == 0:
             first = vals
         elif wk.up:
@@ -197,9 +210,10 @@ class ColumnSums:
             self.add(x + 1, share, wx_hi)
 
 
-def replay_forward(fm, rois, norm, vec, rows=None):
-    """K2 as launched: (B, P, 7, 7, C) in the map's type. `rows`, if given,
-    collects every RowWalk (each with the columns it interpolated)."""
+def replay_forward(fm, rois, norm, vec, rows=None, round_taps=True):
+    """K2 as launched (K4 with round_taps=False): (B, P, 7, 7, C) in the
+    map's type. `rows`, if given, collects every RowWalk (each with the
+    columns it interpolated)."""
     b, h, w, c = fm.shape
     p = rois.shape[1]
     out = torch.full((b, p, OUT, OUT, c), float("nan"))
@@ -214,8 +228,13 @@ def replay_forward(fm, rois, norm, vec, rows=None):
             for py in range(OUT):
                 def done(px, up, t0, t1, b0, b1):
                     out[bi, pi, py, px] = torch.fmax(torch.fmax(t0, t1), torch.fmax(b0, b1))
-                walk_pairs(smp, image_f32[bi], py, fm.dtype, done, rows)
+                walk_pairs(smp, image_f32[bi], py, fm.dtype, done, rows, round_taps)
     return out.to(fm.dtype)
+
+
+def replay_fused(fm, rois, norm, vec):
+    """K4 as launched: K2's launch and walk, each sample's x-sum rounded once."""
+    return replay_forward(fm, rois, norm, vec, round_taps=False)
 
 
 def replay_backward(fm, rois, norm, g, vec):
@@ -282,6 +301,75 @@ def test_forward_walk_on_maps_one_and_two_cells_wide(hw, dtype):
     fm = torch.relu(fm).to(dtype)
     want = torch_roi.roi_pool_features(fm, rois, norm)
     assert torch.equal(replay_forward(fm, rois, norm, vec_of(16, dtype)), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 3, 8, 36, 512, 1030])
+def test_fused_walk_equals_the_plain_version(c, dtype):
+    """K4's walk against `roi_pool_fused_plain`, the dense sheets, on the
+    edge RoIs, on lanes of 4/8 channels or scalar."""
+    fm, rois, norm = edge_roi_inputs(c, 2, 6, 8, c, 7)
+    fm = fm.to(dtype)
+    want = torch_roi.roi_pool_fused_plain(fm, rois, norm)
+    assert torch.equal(replay_fused(fm, rois, norm, vec_of(c, dtype)), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw", [(1, 1), (1, 5), (5, 1), (2, 2), (2, 7)])
+def test_fused_walk_on_maps_one_and_two_cells_wide(hw, dtype):
+    h, w = hw
+    fm, rois, norm = edge_roi_inputs(h * 10 + w, 1, h, w, 16, 7)
+    fm = torch.relu(fm).to(dtype)
+    want = torch_roi.roi_pool_fused_plain(fm, rois, norm)
+    assert torch.equal(replay_fused(fm, rois, norm, vec_of(16, dtype)), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_walk_on_a_map_160_cells_wide(dtype):
+    """Wider than dense weight sheets and their rows fit in a block's shared
+    memory (about 124 cells in f32): the walk has no width limit. RoIs up to
+    80 cells wide, and the edge RoIs."""
+    fm, rois, norm = edge_roi_inputs(160, 1, 38, 160, 8, 8)
+    fm = fm.to(dtype)
+    want = torch_roi.roi_pool_fused_plain(fm, rois, norm)
+    assert torch.equal(replay_fused(fm, rois, norm, vec_of(8, dtype)), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_walk_is_k2s_walk_with_the_x_sum_rounded_once(dtype):
+    """In f32 K4 and K2 are one function, bit for bit. In bf16 K4 rounds
+    each sample's x-sum once where K2 also rounds each x-tap product, so
+    some values differ, by at most a bf16 step (2^-7) of the map's largest
+    value."""
+    fm, rois, norm = edge_roi_inputs(5, 2, 6, 8, 36, 7)
+    fm = fm.to(dtype)
+    fused, taps = replay_fused(fm, rois, norm, vec_of(36, dtype)), replay_forward(fm, rois, norm, vec_of(36, dtype))
+    if dtype == torch.float32:
+        assert torch.equal(fused, taps)
+    else:
+        diff = (fused.float() - taps.float()).abs()
+        assert bool((diff > 0).any())
+        assert float(diff.max()) <= 2.0**-7 * float(fm.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_walk_matches_the_pallas_fused_kernel(dtype):
+    """The same seeded numpy inputs through K4's walk and through
+    `roi_pool_fused_pallas` in interpret mode: equal in bf16; in f32 within
+    1e-5, the tolerance `tests/test_torch_kernels.py` holds the plain version
+    to (the Pallas contraction sums in another order)."""
+    fm, rois, norm = roi_inputs(12, 2, 8, 10, 24, 6, 120.0, 150.0, 8, 10)
+    want = roi_pallas.roi_pool_fused_pallas(
+        jnp.asarray(fm, dtype), jnp.asarray(rois), jnp.asarray(norm), interpret=True, chunk=3
+    )
+    want = np.asarray(want.astype(jnp.float32))
+    tdtype = getattr(torch, dtype)
+    got = replay_fused(torch.from_numpy(fm).to(tdtype), torch.from_numpy(rois), torch.from_numpy(norm),
+                       vec_of(24, tdtype)).float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(got, want)
 
 
 def needed_columns(smp, w):
@@ -379,3 +467,86 @@ def test_lane_chunks_cover_every_channel_once(c, vec, chunks):
     assert lane_chunks(c, vec) == chunks
     channels = [ch for lane in threads(c, vec) for ch in lane]
     assert sorted(channels) == list(range(c))
+
+
+def exact_edge_case():
+    """A map whose real grid is the whole 8x10 map and 8 copies of the RoI
+    spanning a 128x160 image: sample row 13 lands on row 7, the map's last."""
+    fm = (np.abs(np.random.default_rng(0).normal(size=(1, 8, 10, 128))) + 1.0).astype(np.float32)
+    rois = np.tile(np.array([0.0, 0.0, 128.0, 160.0], np.float32), (1, 8, 1))
+    return fm, rois, np.array([[7 / 128, 9 / 160]], np.float32)
+
+
+def jax_positions(lo, hi):
+    """Sample positions as the Pallas kernels write them,
+    lo + (hi - lo) * (s / 13), under jit with scalar corners (the kernels
+    read each RoI's from SMEM), for each pair of (N,) corners: (N, 14).
+    XLA rewrites this into lo + s * ((hi - lo) * f32(1/13))."""
+    def one(corners):
+        return corners[0] + (corners[1] - corners[0]) * (jnp.arange(14, dtype=jnp.float32) / 13)
+
+    return np.asarray(jax.jit(lambda lo, hi: jax.lax.map(one, jnp.stack([lo, hi], -1)))(lo, hi))
+
+
+def test_exact_edge_sample_positions_differ_under_jit():
+    """The port's positions are the f32 operations as written, as eager JAX
+    computes them: sample 13 of (0, 7) at 7.0, on the map. Under jit, JAX
+    puts it at 7.0000005, one ulp past the map's last row."""
+    fm, rois, norm = exact_edge_case()
+    ys, xs = torch_roi._sample_positions(torch.from_numpy(rois), torch.from_numpy(norm))
+    assert ys[0, 0, 13].item() == 7.0 and xs[0, 0, 13].item() == 9.0
+    corners = np.asarray(roi_pallas._rois_to_feature_grid(jnp.asarray(rois), jnp.asarray(norm)))[0, 0]
+    assert corners.tolist() == [0.0, 0.0, 7.0, 9.0]
+    eager = corners[0] + (corners[2] - corners[0]) * (jnp.arange(14, dtype=jnp.float32) / 13)
+    assert np.array_equal(np.asarray(eager), ys[0, 0].numpy())
+    jitted = jax_positions(corners[0:1], corners[2:3])[0]
+    assert jitted[13] == np.nextafter(np.float32(7.0), np.float32(8.0)) == np.float32(7.0000005)
+    assert jax_positions(corners[1:2], corners[3:4])[0, 13] == 9.0  # x: on the last column in both
+
+
+def test_exact_edge_sample_is_the_whole_gap_to_the_pallas_kernels(monkeypatch):
+    """At that RoI the port's two plain versions and JAX's two Pallas
+    kernels (interpret mode, jitted) agree on pooled rows 0-5 and part on
+    row 6, whose window holds sample row 13: the port interpolates map row
+    7, JAX takes 0. The gap is 1.3372 at most. Given JAX's positions, the
+    port agrees with both Pallas kernels everywhere."""
+    fm, rois, norm = exact_edge_case()
+    args = [torch.from_numpy(a) for a in (fm, rois, norm)]
+    jax_taps = np.asarray(jax.jit(lambda *a: roi_pallas.roi_pool_taps_pallas(*a, interpret=True, chunk=1))(
+        fm, rois, norm))
+    jax_fused = np.asarray(roi_pallas.roi_pool_fused_pallas(fm, rois, norm, interpret=True, chunk=1))
+    np.testing.assert_allclose(jax_taps, jax_fused, rtol=0, atol=2e-6)
+    for plain, pallas in ((torch_roi.roi_pool_features, jax_taps), (torch_roi.roi_pool_fused_plain, jax_fused)):
+        gap = np.abs(plain(*args).numpy() - pallas)
+        assert gap[:, :, :6].max() <= 2e-6
+        assert gap[:, :, 6].max(axis=(0, 1, 3)).min() > 0.5  # each pooled column of row 6
+        assert gap.max() == pytest.approx(1.3372104, abs=1e-6)
+
+    def positions(rois, norm):
+        ys, xs = torch_roi_positions(rois, norm)
+        return torch.from_numpy(np.array(jax_positions(ys[0, :, 0].numpy(), ys[0, :, 13].numpy())))[None], xs
+
+    torch_roi_positions = torch_roi._sample_positions
+    monkeypatch.setattr(torch_roi, "_sample_positions", positions)
+    np.testing.assert_allclose(torch_roi.roi_pool_features(*args).numpy(), jax_taps, rtol=0, atol=2e-6)
+    np.testing.assert_allclose(torch_roi.roi_pool_fused_plain(*args).numpy(), jax_fused, rtol=0, atol=2e-6)
+
+
+def test_share_of_right_edge_rois_whose_last_sample_jit_puts_past_the_map():
+    """The main path's geometry: a 600x800 image on the 38x50 canvas, whose
+    real grid fills the map's 50 columns; a proposal clipped to the image
+    ends at x2 = 800, on column 49. Over 4096 seeded x1 in [0, 800) the
+    port puts every last x-sample at 49.0, on the map; the jitted JAX
+    positions put 628 of them (15.3%) one ulp past it, where JAX's pooled
+    column 6 of such a RoI loses its last sample, and 2 one ulp short."""
+    n = 4096
+    rois = np.zeros((1, n, 4), np.float32)
+    rois[0, :, 1] = np.random.default_rng(0).uniform(0.0, 800.0, n).astype(np.float32)
+    rois[0, :, 2:] = [600.0, 800.0]
+    norm = roi_norm(1)
+    _, xs = torch_roi._sample_positions(torch.from_numpy(rois), torch.from_numpy(norm))
+    assert bool((xs[0, :, 13] == 49.0).all())
+    corners = np.asarray(roi_pallas._rois_to_feature_grid(jnp.asarray(rois), jnp.asarray(norm)))[0]
+    last = jax_positions(corners[:, 1], corners[:, 3])[:, 13]
+    assert int((last > 49.0).sum()) == 628
+    assert int((last < 49.0).sum()) == 2  # one ulp short: still on the map, its weights a hair off
