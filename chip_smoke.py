@@ -26,8 +26,10 @@ result line):
      no value may differ), and K2 equal to K4 in f32; the RoI backward on
      the same map x 128 RoIs (the train shape), normal and ReLU'd, f32 and
      bf16, within the tolerance of `backward_close`; K2, K3 and K4 again at
-     C=1024, at C=1030 (scalar lanes) and on a map one element past a
-     16-byte boundary, and K2 and K4 on a (1, 38, 160, 512) map; the conv
+     C=1024, at C=1030 (scalar lanes), on a map one element past a
+     16-byte boundary and on the eval path's 800x608 and 608x928 canvases'
+     maps, (4, 50, 38, 512) and (4, 38, 58, 512), and K2 and K4 on a
+     (1, 38, 160, 512) map; the conv
      kernels K5 (blocks 5, 4 and 3: 4x38x50x512 -> 512, 4x76x100x512 ->
      512, 4x152x200x256 -> 256) and K6 (block 2, 4x304x400x128 -> 128,
      and conv2_1's 64 -> 128), f32 and
@@ -63,6 +65,20 @@ result line):
      at --batch 4, bf16 and f32: every row timed, K5 and K6 launched (phase
      3 holds each kernel against its plain version at each of these
      shapes).
+  6c. eval and CLI: `python -m fasterrcnn_torch` (its `main`, in this
+     process) at the default ModelConfig() on a VOC tree that
+     `data/synthetic_voc.py` writes (trainval 8, test 16, VOC-like sizes:
+     the 608x800, 800x608 and 608x928 canvases), inside a temporary
+     directory:
+     --train for one epoch at batch 4 and learning rate 1e-5 with
+     --save-to, --save-best-to, --log-csv and --checkpoint-dir, then --eval --load-from the saved
+     weights, then --predict-to-file on a test JPEG. Every file must exist;
+     the mAPs must lie in [0, 100], and --eval must print the train's final
+     eval's mAP to the digit (same weights, same split); an engine loaded
+     from the saved weights must hold the epoch-1 checkpoint's bit for bit;
+     the train path must launch K1-K3 and the eval path K1 and K2. Then
+     Engine.evaluate's throughput over the test split, fed by the reader
+     (JPEG decode in the prefetch thread) and fed decoded samples.
   7. timing: Engine.predict and Engine.train_step on the host's batch, ms
      per batch and img/s (f32 with TF32 off, f32 with cuDNN TF32 on, bf16),
      and the peak memory of the f32 call. Each kernel's time, with CUDA
@@ -77,6 +93,9 @@ the kernels, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import io
 import json
 import os
 import re
@@ -266,19 +285,27 @@ def roi_edge_parity(dev, rng):
     and K3 within `backward_close`, in f32 and bf16, where the lanes change:
     ResNet's C=1024 at the predict (K2, K4) and train (K3) RoI counts,
     C=1030 (no whole 16-byte lane: scalar lanes), and a map that starts one
-    element past a 16-byte boundary; and K2 and K4 on a (1, 38, 160, 512)
-    map x 300 RoIs, wider than a dense-sheet K4 could hold in shared memory."""
+    element past a 16-byte boundary; K2 and K4 on a (1, 38, 160, 512)
+    map x 300 RoIs, wider than a dense-sheet K4 could hold in shared memory;
+    and K2, K4 (300 RoIs) and K3 (128 RoIs) on the eval path's two other
+    canvases: 800x608, a (4, 50, 38, 512) map taller than it is wide, with
+    RoIs drawn for 800x600 images, and 608x928, a (4, 38, 58, 512) map, with
+    RoIs drawn for 600x900 images."""
     import torch
     from fasterrcnn_torch.ops import roi as roi_ops
     from fasterrcnn_torch.scripts import profile_roi
 
-    h, img_h = 38, 600.0
     results = {}
-    cases = (("c1024", 4, 50, 1024, False), ("c1030", 4, 50, 1030, False), ("misaligned", 4, 50, 512, True),
-             ("w160", 1, 160, 512, False))
-    for label, b, w, c, misaligned in cases:
-        img_w = 16.0 * w  # 800 at w = 50; the real grid is 37 x w
-        norm = torch.tensor([[(37 - 1) / img_h, (w - 1) / img_w]] * b, device=dev)
+    # (label, B, map (H, W), C, misaligned, image (h, w), real grid (h, w)):
+    # the real grid is VGG-16's, the image's sides divided by 16, floored.
+    cases = (("c1024", 4, (38, 50), 1024, False, (600.0, 800.0), (37, 50)),
+             ("c1030", 4, (38, 50), 1030, False, (600.0, 800.0), (37, 50)),
+             ("misaligned", 4, (38, 50), 512, True, (600.0, 800.0), (37, 50)),
+             ("w160", 1, (38, 160), 512, False, (600.0, 2560.0), (37, 160)),
+             ("tall", 4, (50, 38), 512, False, (800.0, 600.0), (50, 37)),
+             ("wide", 4, (38, 58), 512, False, (600.0, 900.0), (37, 56)))
+    for label, b, (h, w), c, misaligned, (img_h, img_w), (grid_h, grid_w) in cases:
+        norm = torch.tensor([[(grid_h - 1) / img_h, (grid_w - 1) / img_w]] * b, device=dev)
         fm32 = torch.from_numpy(rng.normal(size=(b, h, w, c)).astype(np.float32)).to(dev)
         passes = [(300, ("roi_pool_taps", "roi_pool_fused"))]
         if label != "w160":
@@ -750,6 +777,150 @@ def phase_conv_ab(counters, card):
     return rows, launches
 
 
+def run_cli(args):
+    """`python -m fasterrcnn_torch` in this process (`__main__.main(args)`),
+    its standard output captured; the lines a user reads for the result are
+    echoed. An error in the CLI is not caught."""
+    from fasterrcnn_torch import __main__ as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(args)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        if line.startswith(("Epoch", "Mean Average Precision", "Saved", "Wrote", "Loaded")):
+            print(f"  cli: {line}", flush=True)
+    return out
+
+
+def printed_maps(out):
+    return re.findall(r"Mean Average Precision = ([0-9.]+)%", out)
+
+
+def phase_eval_cli(counters, card, trainval=8, test=16, timing=256):
+    """Phase 6c: the user's loop through the CLI at the default ModelConfig()
+    on a VOC tree written by `data/synthetic_voc.py` (VOC-like sizes, which
+    land in the 608x800, 800x608 and 608x928 canvases), inside a temporary working
+    directory: --train with every output, --eval --load-from the saved
+    weights, --predict-to-file. The CLI's train path must launch K1-K3 and
+    its eval path (eval and predict) K1 and K2; then the eval throughput
+    over a split of its own (`timing` images, another seed), with the JPEG
+    decode in the prefetch thread and on decoded samples."""
+    import tempfile
+
+    import torch
+    from fasterrcnn_torch.config import ModelConfig
+    from fasterrcnn_torch.data import synthetic_voc, voc
+    from fasterrcnn_torch.engine import Engine
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            root = synthetic_voc.generate_voc_dataset(
+                os.path.join(tmp, "VOC2007"), {"trainval": trainval, "test": test}, seed=0)
+            common = ["--dataset-dir", root, "--eval-batch-size", "4"]
+            for fn in counters:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            # --learning-rate 1e-5: at the default 1e-3 the epoch's steps push
+            # every foreground score of the seeded random weights below the
+            # eval's 0.05 threshold, the mAP is 0.00, and a best-weights file
+            # is written only for an mAP above 0 (the reference's rule).
+            train_out = run_cli(["--train", "--epochs", "1", "--batch-size", "4", "--learning-rate", "1e-5",
+                                 "--periodic-eval-samples", "8", "--save-to", "w.pth", "--save-best-to", "b.pth",
+                                 "--log-csv", "log.csv", "--checkpoint-dir", "ck", *common])
+            torch.cuda.synchronize()
+            print(f"cli --train: {time.perf_counter() - t0:.1f} s", flush=True)
+            train_launches = path_launches(
+                counters, ("nms_keep_mask", "roi_pool_taps", "roi_pool_taps_bwd"), "cli train path")
+            jpeg = os.path.join(root, "JPEGImages", "test00000.jpg")
+            for fn in counters:
+                fn.launches = 0
+            eval_out = run_cli(["--eval", "--load-from", "w.pth", *common])
+            run_cli(["--predict-to-file", jpeg])
+            torch.cuda.synchronize()
+            eval_launches = path_launches(counters, ("nms_keep_mask", "roi_pool_taps"), "eval path")
+
+            for name in ("w.pth", "b.pth", "log.csv", "ck/1/params.pth", "ck/1/meta.json", "predictions.png"):
+                check(os.path.isfile(name), f"cli: {name} was not written")
+            train_maps, eval_maps = printed_maps(train_out), printed_maps(eval_out)
+            check(len(train_maps) == 2 and len(eval_maps) == 1, f"cli: mAP lines {train_maps} {eval_maps}")
+            check(all(0.0 <= float(m) <= 100.0 for m in train_maps + eval_maps), "cli: mAP outside [0, 100]")
+            print(f"cli mAP (seeded random weights, {test} test images): periodic eval of 8 {train_maps[0]}%, "
+                  f"final eval {train_maps[1]}%, --eval --load-from w.pth {eval_maps[0]}%", flush=True)
+            check(eval_maps[0] == train_maps[1],
+                  f"cli: --eval of the saved weights printed {eval_maps[0]}%, the train's final eval {train_maps[1]}%")
+
+            engine = Engine(ModelConfig(), seed=1)
+            engine.load_weights("w.pth")
+            epoch1 = torch.load(os.path.join("ck", "1", "params.pth"), map_location="cpu", weights_only=True)
+            state = engine.model.state_dict()
+            check(state.keys() == epoch1.keys() and all(torch.equal(state[k].cpu(), epoch1[k]) for k in state),
+                  "cli: the weights loaded from w.pth differ from the epoch-1 checkpoint")
+            print("cli: an engine loaded from w.pth holds the epoch-1 checkpoint's weights bit for bit", flush=True)
+
+            t0 = time.perf_counter()
+            synthetic_voc.generate_voc_dataset(root, {"timing": timing}, seed=1)
+            print(f"wrote the {timing}-image timing split in {time.perf_counter() - t0:.1f} s", flush=True)
+            throughput = eval_throughput(engine, root, card, "timing")
+        finally:
+            os.chdir(cwd)
+    del engine
+    torch.cuda.empty_cache()
+    return train_launches, eval_launches, throughput
+
+
+def eval_throughput(engine, root, card, split_name, batch_size=4, reps=3):
+    """Warm Engine.evaluate over a VOC split: fed by the reader (the JPEG
+    decode and resize in the prefetch thread, inside the time) and fed a
+    list of already-decoded samples. The difference is the host's decode
+    cost. f32 with cuDNN TF32 off and on; one warm-up pass over the split
+    for each (it meets every canvas the split holds)."""
+    import torch
+    from fasterrcnn_torch.config import select_canvas
+    from fasterrcnn_torch.data import voc
+
+    def split():
+        return voc.Dataset(split_name, dir=root, augment=False, shuffle=False, cache=False)
+
+    t0 = time.perf_counter()
+    decoded = list(split())
+    read_s = time.perf_counter() - t0
+    n = len(decoded)
+    out = {"images": n, "batch_size": batch_size, "canvases": dict(collections.Counter(
+        "x".join(map(str, select_canvas(*s.image_hw))) for s in decoded)),
+        "reader_alone_ms_per_image": 1e3 * read_s / n}
+    print(f"the reader alone (parse, JPEG decode, resize; one thread, no device work): {n} images in "
+          f"{read_s!r} s, {1e3 * read_s / n!r} ms an image; canvases {out['canvases']}", flush=True)
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        with contextlib.redirect_stdout(io.StringIO()):  # each call prints its mAP
+            engine.evaluate(decoded, batch_size=batch_size, progress=False)
+        for label, source in (("decode", split), ("decoded", lambda: decoded)):
+            times = []
+            with contextlib.redirect_stdout(io.StringIO()):
+                for _ in range(reps):
+                    src = source()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    engine.evaluate(src, batch_size=batch_size, progress=False)
+                    times.append(time.perf_counter() - t0)
+            med = statistics.median(times)
+            key = f"{label}_{'tf32_on' if tf32 else 'tf32_off'}"
+            out[key] = {"median_s": med, "min_s": min(times), "max_s": max(times), "img_per_s": n / med}
+            print(f"Engine.evaluate f32 (cuDNN TF32 {'on' if tf32 else 'off'}), "
+                  f"{'JPEG decode in the prefetch thread' if label == 'decode' else 'already-decoded samples'}: "
+                  f"{n} images at batch {batch_size}, median {med!r} s over {reps} (min {min(times)!r}, "
+                  f"max {max(times)!r}), {n / med!r} img/s [{card}]", flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    for tf32 in ("tf32_off", "tf32_on"):
+        a, b = out[f"decode_{tf32}"]["median_s"], out[f"decoded_{tf32}"]["median_s"]
+        out[f"decode_cost_ms_per_image_{tf32}"] = 1e3 * (a - b) / n
+    print(json.dumps({"eval_timing": out, "card": card}), flush=True)
+    return out
+
+
 def phase_timing_train(engine, engine16, batch, card, reps=12):
     """Warm Engine.train_step calls on the host's batch, each ended by a
     device synchronize: the host-to-device copy is included."""
@@ -973,10 +1144,12 @@ def main() -> None:
     del train_engine, train_engine16
     torch.cuda.empty_cache()
     _, conv_launches = phase_conv_ab(counters, card)
+    cli_train_launches, eval_launches, _ = phase_eval_cli(counters, card)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     paths = {"predict": launches, "train": train_launches, "fused_roi_op": fused_launches,
-             "conv_ab": conv_launches, "parity": parity_launches}
+             "conv_ab": conv_launches, "cli_train": cli_train_launches, "eval": eval_launches,
+             "parity": parity_launches}
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}

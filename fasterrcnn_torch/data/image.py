@@ -77,13 +77,20 @@ def load_image(
     horizontal_flip: bool = False,
     max_dimension_pixels: Optional[int] = None,
 ):
-    """Load a local image file with PIL and resize it; no normalization.
+    """Load an image with PIL and resize it; no normalization. `path` is a
+    file path, a file object or an http(s) URL (fetched with urllib).
 
     Returns:
       (image_u8, pil_image, scale_factor, original_shape) where image_u8 is
       (H, W, 3) uint8 RGB, pil_image is the resized PIL image for drawing,
       and original_shape is (3, orig_h, orig_w).
     """
+    if isinstance(path, str) and path.startswith(("http://", "https://")):
+        import io
+        import urllib.request
+
+        with urllib.request.urlopen(path) as resp:
+            path = io.BytesIO(resp.read())
     image = Image.open(path).convert("RGB")
     original_width, original_height = image.width, image.height
     if horizontal_flip:

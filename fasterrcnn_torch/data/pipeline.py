@@ -1,10 +1,12 @@
 """Padded, bucketed batching and background prefetch on the host.
 
-A JAX-free copy of `fasterrcnn_tpu/data/pipeline.py` without its deferred
-JPEG decode (which waits for the VOC reader): samples are padded into the
-static canvas buckets (`config.CANVAS_BUCKETS`), batches form within a
-bucket, residue batches are padded with zero-weight blanks, and a background
-thread keeps batches ready.
+A JAX-free copy of `fasterrcnn_tpu/data/pipeline.py`: samples are padded
+into the static canvas buckets (`config.CANVAS_BUCKETS`), batches form
+within a bucket, residue batches are padded with zero-weight blanks, and a
+background thread keeps batches ready. Deferred samples (`data/voc.
+DeferredJpeg`) are decoded with PIL straight into the padded batch, as the
+JAX package's non-native branch does; its threaded C++ decoder is not
+ported.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 
 from fasterrcnn_torch.config import CANVAS_BUCKETS, select_canvas
+from fasterrcnn_torch.data import image as image_lib
 from fasterrcnn_torch.data.voc import Sample
 
 
@@ -34,6 +37,37 @@ class HostBatch:
         self.samples: List[Sample] = samples  # real samples only (<= B)
 
 
+def _decode_deferred_into(images: np.ndarray, samples: List[Sample], idx):
+    """Decode deferred samples straight into the padded batch canvas.
+
+    Samples with a cache_sink are decoded unflipped (the dataset caches one
+    variant per file) and flipped as they are written. A decoded size other
+    than the annotation's raises before anything is written.
+    """
+    for i in idx:
+        s = samples[i]
+        arr, _, _, _ = image_lib.load_image(
+            s.filepath,
+            min_dimension_pixels=s.deferred.min_side,
+            max_dimension_pixels=s.deferred.max_side,
+            horizontal_flip=s.flip and s.deferred.cache_sink is None,
+        )
+        rh, rw = arr.shape[:2]
+        if (rh, rw) != tuple(s.image_hw):
+            raise ValueError(
+                f"{s.filepath}: decoded to {(rh, rw)} but the annotation's "
+                f"<size> element predicted {tuple(s.image_hw)}"
+            )
+        sink = s.deferred.cache_sink
+        if sink is not None:
+            sink(arr)
+            if s.flip:
+                arr = arr[:, ::-1]
+        images[i, :rh, :rw] = arr
+        s.image_u8 = images[i, :rh, :rw]
+        s.deferred = None
+
+
 def make_host_batch(
     samples: List[Sample],
     canvas_hw: Tuple[int, int],
@@ -43,7 +77,9 @@ def make_host_batch(
     """Stage samples into one padded canvas batch.
 
     pad_to: if set and > len(samples), the batch is padded with blank images
-    (zero pixels, full-canvas extent, no gt) of sample_weight 0.
+    (zero pixels, full-canvas extent, no gt) of sample_weight 0. Deferred
+    samples are decoded into the batch here and get their pixels (a view of
+    the batch) as they would from an eager decode.
     """
     b = max(len(samples), pad_to or 0)
     ch, cw = canvas_hw
@@ -55,19 +91,21 @@ def make_host_batch(
     gt_classes = np.zeros((b, max_gt), np.int32)
     gt_mask = np.zeros((b, max_gt), np.float32)
     sample_weight = np.zeros((b,), np.float32)
+    deferred_idx = [i for i, s in enumerate(samples) if s.image_u8 is None]
     for i, s in enumerate(samples):
-        if s.image_u8 is None:
-            raise ValueError(f"{s.filepath}: sample has no pixels")
         if len(s.gt_boxes) > max_gt:
             raise ValueError(f"{s.filepath}: {len(s.gt_boxes)} gt boxes exceeds max_gt={max_gt}")
-        h, w = s.image_hw
-        images[i, :h, :w] = s.image_u8
+        if s.image_u8 is not None:
+            h, w = s.image_hw
+            images[i, :h, :w] = s.image_u8
         image_hw[i] = s.image_hw
         sample_weight[i] = 1.0
         for j, box in enumerate(s.gt_boxes):
             gt_boxes[i, j] = box.corners
             gt_classes[i, j] = box.class_index
             gt_mask[i, j] = 1.0
+    if deferred_idx:
+        _decode_deferred_into(images, samples, deferred_idx)
     return HostBatch(canvas_hw, images, image_hw, gt_boxes, gt_classes, gt_mask, sample_weight, samples)
 
 

@@ -4,14 +4,18 @@
 order) builds the model with seeded random weights on `device` ("cuda"
 unless the caller asks for "cpu"); `set_params` installs a state_dict (see
 `utils/weights.py` for one made from the JAX package's parameters) and
-restarts the optimizer; `predict` runs a padded canvas batch;
-`predict_image` stages one `data/voc.Sample` into its canvas bucket and
-returns the reference's per-class dict; `train_step` takes one optimizer
-step on a padded batch and `train_epoch` runs one over a dataset.
+restarts the optimizer; `load_weights` does so from any weight file
+`utils/checkpoint.load` reads and `save_weights` writes the port's own
+`.pth`; `predict` runs a padded canvas batch; `predict_image` stages one
+`data/voc.Sample` into its canvas bucket and returns the reference's
+per-class dict; `train_step` takes one optimizer step on a padded batch and
+`train_epoch` runs one over a dataset; `evaluate` runs predict over a
+dataset and returns the VOC mAP in percent.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 import sys
 from typing import Dict, Iterable, Optional, Tuple
@@ -32,9 +36,9 @@ from fasterrcnn_torch.models.faster_rcnn import (
     make_predict_fn,
     make_train_step,
 )
+from fasterrcnn_torch.utils import checkpoint as ckpt_lib
 from fasterrcnn_torch.utils import postprocess
-from fasterrcnn_torch.utils.stats import TrainingStatistics
-
+from fasterrcnn_torch.utils.stats import PrecisionRecallCurveCalculator, TrainingStatistics
 
 def resolve_device(device) -> torch.device:
     """The requested device; raises rather than falling back to the CPU."""
@@ -171,6 +175,14 @@ class Engine:
         self.model.load_state_dict(state_dict)
         self._restart_optimizer()
 
+    def load_weights(self, filepath: str) -> None:
+        """Load any weight file `utils/checkpoint.load` reads; restarts the
+        optimizer."""
+        self.set_params(ckpt_lib.load(self.model, filepath))
+
+    def save_weights(self, filepath: str) -> None:
+        ckpt_lib.save_weights(filepath, self.model)
+
     def predict_fn_for(self, canvas_hw: Tuple[int, int]):
         canvas_hw = tuple(canvas_hw)
         if canvas_hw not in self._predict_fns:
@@ -248,3 +260,68 @@ class Engine:
         hb = make_host_batch([sample], select_canvas(*sample.image_hw), self.model_cfg.max_gt_boxes)
         det = self.predict(hb.images, hb.image_hw, score_threshold=score_threshold)
         return postprocess.detections_to_dicts(det)[0]
+
+    def evaluate(
+        self,
+        dataset: Iterable,
+        batch_size: int = 8,
+        num_samples: Optional[int] = None,
+        score_threshold: float = 0.05,
+        print_average_precisions: bool = False,
+        plot: bool = False,
+        progress: bool = True,
+    ) -> float:
+        """Predict over `dataset` (at most num_samples samples) in padded
+        canvas batches assembled in a background thread, and return the VOC
+        mAP in percent. Each batch's detections are read, in one copy to the
+        host, just after the next batch is dispatched; only real samples
+        reach the calculator."""
+        calc = PrecisionRecallCurveCalculator()
+        source = iter(dataset)
+        if num_samples is not None:
+            # Bounds the decode work: the prefetch thread stops after them.
+            source = itertools.islice(source, num_samples)
+        batches = Prefetcher(batched(source, batch_size, self.model_cfg.max_gt_boxes))
+        seen = 0
+        finished = 0
+
+        def finish(packed, samples):
+            nonlocal seen, finished
+            packed = packed.cpu().numpy()
+            det = Detections(boxes=packed[..., :4], scores=packed[..., 4], valid=packed[..., 5])
+            # hb.samples holds only the real samples: the zero-weight
+            # padding rows of a residue batch are dropped here.
+            for sample, scored in zip(samples, postprocess.detections_to_dicts(det)):
+                calc.add_image_results(scored, sample.gt_boxes)
+                seen += 1
+            finished += 1
+            if progress and finished % 8 == 0:
+                print(f"eval: {seen} images", file=sys.stderr, flush=True)
+
+        # Reading one batch behind lets the calculator's work on a batch
+        # overlap the device's on the next. A deeper queue would add
+        # nothing: predict's upload of the next batch from pageable memory
+        # is a copy PyTorch ends with a stream synchronize, so it already
+        # waits for the device to finish every batch before it.
+        previous = None
+        try:
+            for hb in batches:
+                det = self.predict(hb.images, hb.image_hw, score_threshold=score_threshold)
+                packed = torch.cat([det.boxes, det.scores[..., None], det.valid[..., None].float()], dim=-1)
+                if previous is not None:
+                    finish(*previous)
+                previous = (packed, hb.samples)
+            if previous is not None:
+                finish(*previous)
+        finally:
+            batches.close()
+        if progress:
+            print(f"eval: {seen} images", file=sys.stderr, flush=True)
+        class_names = getattr(dataset, "class_index_to_name", {})
+        if print_average_precisions:
+            calc.print_average_precisions(class_names)
+        mean_ap = 100.0 * calc.compute_mean_average_precision()
+        print("Mean Average Precision = %1.2f%%" % mean_ap)
+        if plot:
+            calc.plot_average_precisions(class_names)
+        return mean_ap

@@ -82,7 +82,9 @@ class FasterRCNN(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         if cfg.roi_mode != "crop":
-            raise NotImplementedError(f"roi_mode={cfg.roi_mode!r} is not ported yet")
+            raise NotImplementedError(
+                f"roi_mode={cfg.roi_mode!r} (exact RoIPool, --custom-roi-pool) is not ported yet (ROADMAP A14)"
+            )
         self.cfg = cfg
         self.spec = get_backbone(cfg.backbone)
         freeze = not cfg.train_all

@@ -1,0 +1,184 @@
+"""`python -m fasterrcnn_torch` on the CPU: the flows of tests/test_cli.py on
+`--device cpu --tiny --synthetic 8`, through the port's `__main__.main`.
+
+Each test runs in its own temporary working directory, because the CLI
+writes predictions.png there, as the JAX package's CLI does.
+"""
+
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from fasterrcnn_torch import __main__ as cli
+from fasterrcnn_torch.data import synthetic_voc, voc
+
+TINY = ["--device", "cpu", "--tiny"]
+TRAIN = [*TINY, "--train", "--synthetic", "8", "--batch-size", "4", "--eval-batch-size", "4",
+         "--periodic-eval-samples", "2"]
+
+
+@pytest.fixture(autouse=True)
+def in_tmp_path(tmp_path, monkeypatch):
+    """Run in tmp_path; delete its files (full-width weights, ~0.5 GB each)
+    when the test ends, not when pytest prunes old temporary directories."""
+    monkeypatch.chdir(tmp_path)
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+def test_cli_train_resume_eval(tmp_path, capsys):
+    cli.main([*TRAIN, "--epochs", "1", "--save-to", "final.pth", "--save-best-to", "best.pth",
+              "--log-csv", "log.csv", "--checkpoint-dir", "ck"])
+    assert (tmp_path / "final.pth").exists()
+    lines = (tmp_path / "log.csv").read_text().strip().splitlines()
+    assert lines[0].startswith("epoch,") and len(lines) == 2 and lines[1].startswith("1,")
+    assert os.listdir(tmp_path / "ck") == ["1"]
+    # The final weights and the epoch-1 checkpoint are the same weights.
+    final = torch.load(tmp_path / "final.pth", weights_only=True)
+    epoch1 = torch.load(tmp_path / "ck" / "1" / "params.pth", weights_only=True)
+    assert final.keys() == epoch1.keys() and all(torch.equal(final[k], epoch1[k]) for k in final)
+    out = capsys.readouterr().out
+    assert "Saved checkpoint for epoch 1" in out and out.count("Mean Average Precision = ") == 2
+
+    # Resume: continue to epoch 2 from the stored epoch-1 checkpoint.
+    cli.main([*TRAIN, "--epochs", "2", "--checkpoint-dir", "ck", "--resume", "--log-csv", "log.csv"])
+    assert sorted(os.listdir(tmp_path / "ck")) == ["1", "2"]
+    lines = (tmp_path / "log.csv").read_text().strip().splitlines()
+    assert len(lines) == 3 and lines[-1].startswith("2,")  # only epoch 2 trained
+    assert "Resumed from checkpoint epoch 1" in capsys.readouterr().out
+
+    # Reload the saved weights through the multi-format loader and eval.
+    cli.main([*TINY, "--eval", "--synthetic", "4", "--eval-batch-size", "4", "--load-from", "final.pth"])
+    out = capsys.readouterr().out
+    assert "Average Precisions" in out and "Mean Average Precision = " in out
+
+
+@pytest.mark.parametrize("source", ["path", "url"])
+def test_cli_predict_to_file(tmp_path, source):
+    """--predict-to-file of a local JPEG, or of one fetched by URL (from a
+    server on this machine)."""
+    import functools
+    import http.server
+    import threading
+
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    img_path = tmp_path / "test.jpg"
+    Image.fromarray(rng.integers(0, 255, (120, 150, 3), dtype=np.uint8)).save(img_path)
+    if source == "path":
+        cli.main([*TINY, "--predict-to-file", str(img_path)])
+    else:
+        handler = functools.partial(http.server.SimpleHTTPRequestHandler, directory=str(tmp_path))
+        server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), handler)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            cli.main([*TINY, "--predict-to-file", f"http://127.0.0.1:{server.server_port}/test.jpg"])
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=10)
+        assert not thread.is_alive()
+    assert Image.open(tmp_path / "predictions.png").size == (750, 600)  # resized to min side 600
+
+
+def test_load_weights_after_a_predict_uses_the_new_weights(tmp_path):
+    """The engine's cached predict functions close over the model, and
+    load_weights copies into its parameters, so a predict after a load uses
+    the loaded weights."""
+    from fasterrcnn_torch import config
+    from fasterrcnn_torch.data.synthetic import synthetic_samples
+    from fasterrcnn_torch.engine import Engine
+    from tests.test_torch_predict import tiny_config
+
+    sample = next(synthetic_samples(1, 120, 150, seed=0))
+    cfg = tiny_config(config)
+    other = Engine(cfg, seed=1, device="cpu")
+    other.save_weights(str(tmp_path / "other.pth"))
+    engine = Engine(cfg, seed=0, device="cpu")
+    before = engine.predict_image(sample, score_threshold=0.0)
+    engine.load_weights(str(tmp_path / "other.pth"))
+    after = engine.predict_image(sample, score_threshold=0.0)
+    want = other.predict_image(sample, score_threshold=0.0)
+    assert any(not np.array_equal(before[c], after[c]) for c in before)
+    for c in want:
+        np.testing.assert_array_equal(after[c], want[c])
+
+
+def test_cli_dump_anchors_renders_deferred_voc(tmp_path, monkeypatch):
+    """--dump-anchors renders one PNG per image from a VOC tree whose
+    samples are deferred (no pixels until batch time): the CLI materializes
+    them."""
+    root = synthetic_voc.generate_voc_dataset(str(tmp_path / "VOC2007"), {"trainval": 2, "test": 1}, seed=5)
+    materialized = []
+
+    class DeferredDataset(voc.Dataset):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, batch_decode=True, **kwargs)
+
+        def __next__(self):
+            sample = super().__next__()
+            assert sample.image_u8 is None and sample.deferred is not None
+            materialized.append(sample)
+            return sample
+
+    monkeypatch.setattr(voc, "Dataset", DeferredDataset)
+    cli.main([*TINY, "--dump-anchors", "anchors", "--dataset-dir", root, "--no-augment"])
+    pngs = sorted(f for f in os.listdir(tmp_path / "anchors") if f.endswith(".png"))
+    assert pngs == ["anchors_trainval00000.jpg.png", "anchors_trainval00001.jpg.png"]
+    assert len(materialized) == 2 and all(s.image_u8 is not None for s in materialized)
+
+
+@pytest.mark.parametrize("flags, item", [
+    (["--backbone", "resnet50"], "A13"),
+    (["--backbone", "resnet101"], "A13"),
+    (["--backbone", "resnet152"], "A13"),
+    (["--custom-roi-pool"], "A14"),
+    (["--memory-stats"], "A15"),
+    (["--debug-nans"], "A15"),
+    (["--profile-dir", "prof"], "A15"),
+    (["--num-devices", "2"], "A16"),
+    (["--tp", "2"], "A16"),
+])
+def test_cli_waiting_flags_raise_naming_their_item(flags, item):
+    with pytest.raises(NotImplementedError, match=item):
+        cli.main([*TRAIN, "--epochs", "1", *flags])
+
+
+def test_cli_device_cuda_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        cli.main(["--tiny", "--eval", "--synthetic", "4"])
+
+
+def test_cli_parser_has_every_flag_of_the_jax_cli():
+    from fasterrcnn_tpu.__main__ import build_parser as jax_parser
+
+    def flags(parser):
+        return {a.dest: (a.option_strings, a.default, a.choices, a.type) for a in parser._actions}
+
+    mine, theirs = flags(cli.build_parser()), flags(jax_parser())
+    assert set(mine) - set(theirs) == {"device"}
+    for dest, spec in theirs.items():
+        assert mine[dest] == spec, dest
+    assert mine["device"][1] == "cuda"
+
+
+def test_best_weights_file_holds_the_best_epoch(tmp_path, monkeypatch):
+    """--save-best-to writes the weights of the epoch with the highest mAP,
+    not the last epoch's (random weights score 0.0, so the eval is pinned)."""
+    from fasterrcnn_torch.engine import Engine
+
+    maps = iter([10.0, 5.0, 10.0, 7.0])  # periodic evals of epochs 1 and 2, then the final eval
+    monkeypatch.setattr(Engine, "evaluate", lambda self, *a, **k: next(maps))
+    cli.main([*TRAIN, "--epochs", "2", "--save-best-to", "best.pth", "--checkpoint-dir", "ck"])
+    best = torch.load(tmp_path / "best.pth", weights_only=True)
+    epoch1 = torch.load(tmp_path / "ck" / "1" / "params.pth", weights_only=True)
+    epoch2 = torch.load(tmp_path / "ck" / "2" / "params.pth", weights_only=True)
+    assert best.keys() == epoch1.keys()
+    assert all(torch.equal(best[k], epoch1[k]) for k in best)
+    assert not all(torch.equal(best[k], epoch2[k]) for k in best)

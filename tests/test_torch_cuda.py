@@ -490,3 +490,84 @@ def test_cuda_conv_wrappers_carry_the_plain_gradient(cuda, kernel):
         grads.append([t.grad for t in leaves])
     for got, want in zip(*grads):
         assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+# How far the card's detections may lie from a CPU engine's on the same
+# weights and images, in score and in box corner (pixels). The two agree
+# stage by stage to ~1e-4 (chip_smoke.py phase 4). The mAPs must then be
+# equal: on the H100 the gap was 0.0 at both thresholds.
+DETECTION_ATOL = 1e-4
+
+
+def paired_gaps(on_card, on_host):
+    """Largest score and box gaps between one image's detections of one
+    class on the card and on the CPU, each card detection paired with the
+    CPU detection nearest in box corners, and the pairing required to be
+    one to one. Detections whose scores differ in the last bits may leave
+    NMS in either order; within a class NMS leaves no two boxes that near."""
+    n = len(on_host)
+    dist = np.abs(on_card[:, None, :4] - on_host[None, :, :4]).max(-1)
+    nearest = dist.argmin(1)
+    assert sorted(nearest.tolist()) == list(range(n)), "the card's detections do not pair one to one"
+    return float(np.abs(on_card[:, 4] - on_host[nearest, 4]).max()), float(dist[np.arange(n), nearest].max())
+
+
+@pytest.mark.cuda
+def test_cuda_evaluate_matches_a_cpu_engine(cuda, tmp_path, monkeypatch):
+    """Engine.evaluate on the card and on the CPU, tiny config, the same
+    weights, over a 12-image VOC split (batch 4, two canvases, residue
+    batches): the same images reach the calculator, each with the same
+    number of detections of each class, paired one to one with the CPU's
+    within DETECTION_ATOL in score and box, and the mAPs are equal. Prints
+    the gaps."""
+    from fasterrcnn_torch import config, engine as torch_engine
+    from fasterrcnn_torch.data import synthetic_voc, voc
+    from fasterrcnn_torch.utils import stats
+
+    cfg = config.ModelConfig(
+        anchors=config.AnchorConfig(areas=(24.0 * 24, 48.0 * 48, 96.0 * 96)),
+        rpn=config.RPNConfig(pre_nms_train=400, post_nms_train=128, pre_nms_infer=200, post_nms_infer=64,
+                             minibatch_size=64),
+        detector=config.DetectorConfig(proposal_batch_size=32),
+        max_gt_boxes=8,
+    )
+    root = synthetic_voc.generate_voc_dataset(str(tmp_path / "VOC2007"), {"test": 12}, seed=2)
+    seen = []
+
+    class Recording(stats.PrecisionRecallCurveCalculator):
+        def add_image_results(self, scored, gt_boxes):
+            gt = tuple(tuple(float(v) for v in b.corners) for b in gt_boxes)
+            seen.append((gt, {c: np.array(rows) for c, rows in scored.items()}))
+            super().add_image_results(scored, gt_boxes)
+
+    monkeypatch.setattr(torch_engine, "PrecisionRecallCurveCalculator", Recording)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    card = torch_engine.Engine(cfg, seed=0, device=cuda)
+    host = torch_engine.Engine(cfg, seed=1, device="cpu")
+    host.set_params(card.model.state_dict())
+    for threshold in (0.0, 0.05):
+        maps = []
+        for engine in (card, host):
+            seen.clear()
+            split = voc.Dataset("test", dir=root, augment=False, shuffle=False, cache=False,
+                                min_dimension_pixels=120, max_dimension_pixels=160)
+            maps.append((engine.evaluate(split, batch_size=4, score_threshold=threshold, progress=False), list(seen)))
+        (got, seen_card), (want, seen_host) = maps
+        assert len(seen_card) == 12 and [g for g, _ in seen_card] == [g for g, _ in seen_host]
+        score_err = box_err = 0.0
+        detections = 0
+        for (_, on_card), (_, on_host) in zip(seen_card, seen_host):
+            assert on_card.keys() == on_host.keys()
+            for c in on_host:
+                assert on_card[c].shape == on_host[c].shape, f"class {c}: {on_card[c].shape} {on_host[c].shape}"
+                if len(on_host[c]):
+                    detections += len(on_host[c])
+                    score_gap, box_gap = paired_gaps(on_card[c], on_host[c])
+                    score_err, box_err = max(score_err, score_gap), max(box_err, box_gap)
+        print(f"evaluate at score threshold {threshold}: {detections} detections on each side; max score gap "
+              f"{score_err!r}, max box gap {box_err!r} px; mAP card {got!r}, CPU {want!r}, gap {abs(got - want)!r} "
+              f"mAP points over {len(seen_host)} images")
+        assert detections > 0 and want > 0.0
+        assert score_err <= DETECTION_ATOL and box_err <= DETECTION_ATOL
+        assert got == want
