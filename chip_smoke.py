@@ -46,16 +46,29 @@ result line):
      on identical inputs, then the whole predict; then one train step's
      losses and gradients, with the same weights and the same draws, on a
      batch from its own seeded generator (`scripts/reference_train.py`).
+     The same for ResNet-50 at the tiny config, its train step in
+     from-scratch mode (train_all: bn3 scales 0, nothing frozen).
   5. main path, predict: the default ModelConfig (VGG-16, 21 classes, caps
      6000 -> 300) at full width through Engine, on a 608x800 canvas, B=4,
      seeded random weights and images: predict at score thresholds 0.05 and
-     0.0, one predict_image, and one bf16 predict; the kernels' launch
+     0.0, one predict_image, and bf16 predicts at both; the kernels' launch
      counts must rise. TF32 is off for every parity phase.
   6. main path, train: the default ModelConfig at full width through
      Engine.train_step and Engine.train_epoch, B=4 synthetic 600x800
      samples on the 608x800 canvas: the f32 loss must fall over 10 steps on
      one batch, with all four losses positive at the first step; two steps
      of train_epoch; bf16 train steps; K1-K3 must launch.
+  6r. ResNet-101 at full width through Engine, B=4 on the 608x800 canvas,
+     seeded random weights: the predict path as phase 5 (frozen mode, f32
+     with TF32 off and bf16, score thresholds 0.05 and 0.0, the feature
+     map's largest |value| printed); K2 and K3 on that path's own
+     (4, 38, 50, 1024) maps and proposals, f32 and bf16, K2 identical to its
+     plain version and K3 within `backward_close`, each timed; predict
+     timing and profile; the train path as phase 6 in from-scratch mode
+     (train_all), 10 f32 steps on one batch with a falling loss, two of
+     train_epoch, two bf16 steps, K1-K3 launched; train timing and profile;
+     then one f32 predict each of ResNet-50 and ResNet-152 on the same
+     images, K1 and K2 launched.
   5b. the fused RoI op (K4's path): `roi_pool_fused`, the public op, on
      the predict path's own f32 feature map and RPN proposals; it must
      launch K4 and equal `roi_pool_fused_plain` and `roi_pool_taps` there,
@@ -77,13 +90,18 @@ result line):
      eval's mAP to the digit (same weights, same split); an engine loaded
      from the saved weights must hold the epoch-1 checkpoint's bit for bit;
      the train path must launch K1-K3 and the eval path K1 and K2. Then
+     --eval --backbone resnet101 --load-from a torchvision-layout ResNet-101
+     file the script writes from a seed: the file must load, the mAP lie in
+     [0, 100], and K1 and K2 launch. Then
      Engine.evaluate's throughput over the test split, fed by the reader
      (JPEG decode in the prefetch thread) and fed decoded samples.
-  7. timing: Engine.predict and Engine.train_step on the host's batch, ms
+  7. timing (VGG-16 and ResNet-101, each after its paths): Engine.predict
+     and Engine.train_step on the host's batch, ms
      per batch and img/s (f32 with TF32 off, f32 with cuDNN TF32 on, bf16),
      and the peak memory of the f32 call. Each kernel's time, with CUDA
      events beside its plain version's and its bound, is taken in phase 3.
-  8. profile: torch.profiler over warm Engine.predict calls and warm
+  8. profile (VGG-16 and ResNet-101): torch.profiler over warm
+     Engine.predict calls and warm
      Engine.train_step calls, f32 and bf16 with TF32 off: device time by
      layer, idle share, device ops per call.
 Each path runs with every kernel's launch count set to 0 just before it and
@@ -498,17 +516,22 @@ def check_conv_grad_fn(dev):
         check(err <= 1e-4, f"{name} backward: {err}")
 
 
-def phase_reference(dev, rng):
-    """Tiny config on the card vs on the CPU, with identical weights."""
+def phase_reference(dev, rng, backbone="vgg16"):
+    """Tiny config on the card vs on the CPU, with identical weights. For a
+    ResNet the tolerances of the maps and head outputs are 1e-4 of the CPU
+    values' largest magnitude (at least 1e-4): its 16-49 residual blocks
+    carry the two devices' last-bit differences into values of ~10."""
     import torch
     from fasterrcnn_torch.config import AnchorConfig, ModelConfig, RPNConfig
     from fasterrcnn_torch.models import faster_rcnn as frcnn
     from fasterrcnn_torch.models.rpn import generate_proposals
 
     cfg = ModelConfig(
+        backbone=backbone,
         anchors=AnchorConfig(areas=(24.0 * 24, 48.0 * 48, 96.0 * 96)),
         rpn=RPNConfig(pre_nms_infer=200, post_nms_infer=64),
     )
+    scaled = backbone.startswith("resnet")
     cpu = frcnn.FasterRCNN(cfg)
     frcnn.init_params(cpu, seed=0)
     cpu.eval()
@@ -521,16 +544,18 @@ def phase_reference(dev, rng):
     images[0, :, 150:] = 0
     images[1, 112:] = 0
 
-    def close(name, got, want, atol):
+    def close(name, got, want, atol, relative=False):
+        if relative:
+            atol *= max(1.0, float(want.abs().max()))
         err = float((got.cpu().float() - want.float()).abs().max().item())
-        print(f"reference {name}: max_abs_err {err!r} (atol {atol})", flush=True)
-        check(err <= atol, f"reference {name}: card vs CPU max_abs_err {err} > {atol}")
+        print(f"reference {backbone} {name}: max_abs_err {err!r} (atol {atol!r})", flush=True)
+        check(err <= atol, f"reference {backbone} {name}: card vs CPU max_abs_err {err} > {atol}")
 
     with torch.inference_mode():
         fm_c, lg_c, dl_c = cpu.features_and_rpn(images)
         fm_g, lg_g, dl_g = card.features_and_rpn(images.to(dev))
         for name, g, w in (("feature map", fm_g, fm_c), ("rpn logits", lg_g, lg_c), ("rpn deltas", dl_g, dl_c)):
-            close(name, g, w, 1e-4)
+            close(name, g, w, 1e-4, scaled)
 
         grid = frcnn.anchor_grid_for(cfg, 128, 160)
         args = (cfg.rpn.pre_nms_infer, cfg.rpn.post_nms_infer, cfg.rpn.nms_iou_threshold, cfg.rpn.min_proposal_side)
@@ -548,8 +573,8 @@ def phase_reference(dev, rng):
 
         cls_c, box_c = cpu.detect_rois(fm_c, p_c.boxes, hw)
         cls_g, box_g = card.detect_rois(fm_c.to(dev), p_c.boxes.to(dev), hw.to(dev))
-        close("class logits", cls_g, cls_c, 1e-4)
-        close("box deltas", box_g, box_c, 1e-4)
+        close("class logits", cls_g, cls_c, 1e-4, scaled)
+        close("box deltas", box_g, box_c, 1e-4, scaled)
 
     # The whole predict: the card's RPN outputs differ from the CPU's in the
     # last bits, which may reorder near-equal scores; require agreement on
@@ -558,12 +583,13 @@ def phase_reference(dev, rng):
     d_g = frcnn.make_predict_fn(card, 128, 160)(images.to(dev), hw.to(dev), score_threshold=0.0)
     both = (d_g.valid.cpu() > 0) & (d_c.valid > 0)
     agree = float((d_g.valid.cpu() == d_c.valid).float().mean().item())
-    print(f"reference predict: {int(d_c.valid.sum())} CPU detections, valid agreement {agree!r}", flush=True)
-    check(d_c.valid.sum() > 0 and agree >= 0.99, f"reference predict: valid agreement {agree}")
+    print(f"reference {backbone} predict: {int(d_c.valid.sum())} CPU detections, valid agreement {agree!r}",
+          flush=True)
+    check(d_c.valid.sum() > 0 and agree >= 0.99, f"reference {backbone} predict: valid agreement {agree}")
     close("detection scores", d_g.scores.cpu()[both], d_c.scores[both], 1e-4)
 
 
-def phase_reference_train(dev, seed=0):
+def phase_reference_train(dev, seed=0, backbone="vgg16", train_all=False):
     """One train step's losses and gradients, card vs CPU
     (`scripts/reference_train.run_draw`): same weights, same draws, and a
     batch from its own seeded generator. Losses within 1e-4 relative;
@@ -573,14 +599,15 @@ def phase_reference_train(dev, seed=0):
     a cotangent splits on one side alone."""
     from fasterrcnn_torch.scripts import reference_train
 
-    row = reference_train.run_draw(dev, seed)
-    print(f"reference train losses: card {row['losses_card']!r}, CPU {row['losses_cpu']!r}", flush=True)
+    label = f"reference train {backbone}{' train_all' if train_all else ''}"
+    row = reference_train.run_draw(dev, seed, backbone=backbone, train_all=train_all)
+    print(f"{label} losses: card {row['losses_card']!r}, CPU {row['losses_cpu']!r}", flush=True)
     for name, a, c in zip(("rpn_class", "rpn_regression", "detector_class", "detector_regression"),
                           row["losses_card"], row["losses_cpu"]):
-        check(c > 0 and abs(a - c) <= 1e-4 * abs(c), f"reference train {name}: card {a} vs CPU {c}")
-    print(f"reference train gradients (seed {seed}): worst relative norm {row['worst']!r} ({row['worst_tensor']}; "
+        check(c > 0 and abs(a - c) <= 1e-4 * abs(c), f"{label} {name}: card {a} vs CPU {c}")
+    print(f"{label} gradients (seed {seed}): worst relative norm {row['worst']!r} ({row['worst_tensor']}; "
           f"tolerance {reference_train.TOLERANCE}) over {row['tensors']} tensors", flush=True)
-    check(row["worst"] <= reference_train.TOLERANCE, f"reference train gradients: {row['worst_tensor']} at {row['worst']}")
+    check(row["worst"] <= reference_train.TOLERANCE, f"{label} gradients: {row['worst_tensor']} at {row['worst']}")
 
 
 # Real image extents on the 608x800 canvas, all smaller than it.
@@ -621,20 +648,35 @@ def path_launches(counters, required, label):
     return launches
 
 
-def phase_main_path(dev, rng, counters, canvas=(608, 800), extents=MAIN_EXTENTS):
-    """The predict path, with every launch count in `counters` set to 0
-    before it; it must launch K1 and K2."""
+def feature_map_peak(engine, images):
+    """The largest |value| of the engine's feature map of `images`: a fresh
+    deep ResNet (bn3 scale 1) grows its activations block by block, and a
+    blow-up shows here as a number before it shows as NaN detections."""
+    import torch
+
+    with torch.inference_mode():
+        fm, _, _ = engine.model.features_and_rpn(torch.as_tensor(images, device=engine.device))
+        return float(fm.float().abs().max())
+
+
+def phase_main_path(dev, rng, counters, canvas=(608, 800), extents=MAIN_EXTENTS, cfg=None, label="main path"):
+    """The predict path of `cfg` (default: ModelConfig(), VGG-16), f32 and
+    bf16, with every launch count in `counters` set to 0 before it; it must
+    launch K1 and K2."""
+    import dataclasses
+
     import torch
     from fasterrcnn_torch.config import ModelConfig
     from fasterrcnn_torch.data.voc import Sample
     from fasterrcnn_torch.engine import Engine
 
+    cfg = cfg or ModelConfig()
     b = len(extents)
     images, image_hw = main_path_images(rng, extents, canvas)
     t0 = time.perf_counter()
-    engine = Engine(ModelConfig(), seed=0)
-    engine16 = Engine(ModelConfig(compute_dtype="bfloat16"), seed=0)
-    print(f"engines built in {time.perf_counter() - t0:.1f} s", flush=True)
+    engine = Engine(cfg, seed=0)
+    engine16 = Engine(dataclasses.replace(cfg, compute_dtype="bfloat16"), seed=0)
+    print(f"{label}: {cfg.backbone} engines built in {time.perf_counter() - t0:.1f} s", flush=True)
 
     for fn in counters:
         fn.launches = 0
@@ -643,14 +685,18 @@ def phase_main_path(dev, rng, counters, canvas=(608, 800), extents=MAIN_EXTENTS)
     h0, w0 = extents[0]
     sample = Sample(image_u8=images[0, :h0, :w0], image_hw=(h0, w0), gt_boxes=[], filepath="random")
     per_image = engine.predict_image(sample, score_threshold=0.0)
+    det16_05 = engine16.predict(images, image_hw, score_threshold=0.05)
     det16 = engine16.predict(images, image_hw, score_threshold=0.0)
     torch.cuda.synchronize()
-    launches = path_launches(counters, ("nms_keep_mask", "roi_pool_taps"), "main path")
+    launches = path_launches(counters, ("nms_keep_mask", "roi_pool_taps"), label)
 
-    n05 = check_detections(det05, b, 300, image_hw, "predict f32 @0.05")
-    n0 = check_detections(det0, b, 300, image_hw, "predict f32 @0.0")
-    n16 = check_detections(det16, b, 300, image_hw, "predict bf16 @0.0")
-    print(f"detections: f32 @0.05 {n05}, f32 @0.0 {n0}, bf16 @0.0 {n16}", flush=True)
+    n05 = check_detections(det05, b, 300, image_hw, f"{label} predict f32 @0.05")
+    n0 = check_detections(det0, b, 300, image_hw, f"{label} predict f32 @0.0")
+    n16_05 = check_detections(det16_05, b, 300, image_hw, f"{label} predict bf16 @0.05")
+    n16 = check_detections(det16, b, 300, image_hw, f"{label} predict bf16 @0.0")
+    print(f"{label} detections: f32 @0.05 {n05}, f32 @0.0 {n0}, bf16 @0.05 {n16_05}, bf16 @0.0 {n16}; "
+          f"max |feature map| f32 {feature_map_peak(engine, images)!r}, bf16 {feature_map_peak(engine16, images)!r}",
+          flush=True)
     check(n0 > 0 and n16 > 0, "predict at score threshold 0.0 found no detections")
     check(sorted(per_image) == list(range(1, 21)), "predict_image: class keys")
     check(all(r.ndim == 2 and r.shape[1] == 5 and np.isfinite(r).all() for r in per_image.values()),
@@ -660,26 +706,28 @@ def phase_main_path(dev, rng, counters, canvas=(608, 800), extents=MAIN_EXTENTS)
     # need only be close.
     n_img = sum(len(r) for r in per_image.values())
     n_batch = int((det0.valid[0] > 0).sum())
-    print(f"predict_image: {n_img} detections over 20 classes (batched image 0: {n_batch})", flush=True)
-    check(abs(n_img - n_batch) <= max(2, n_batch // 20), "predict_image disagrees with predict on image 0")
+    print(f"{label} predict_image: {n_img} detections over 20 classes (batched image 0: {n_batch})", flush=True)
+    check(abs(n_img - n_batch) <= max(2, n_batch // 20), f"{label}: predict_image disagrees with predict on image 0")
     return engine, engine16, images, image_hw, launches
 
 
-def phase_main_path_train(counters, steps=10):
-    """The default config's train path at full width through Engine, with
-    every launch count in `counters` set to 0 before it; it must launch
-    K1-K3."""
+def phase_main_path_train(counters, steps=10, cfg=None, label="train path"):
+    """The train path of `cfg` (default: ModelConfig(), VGG-16) at full
+    width through Engine, with every launch count in `counters` set to 0
+    before it; it must launch K1-K3."""
+    import dataclasses
+
     import torch
     from fasterrcnn_torch.config import ModelConfig
     from fasterrcnn_torch.data.pipeline import make_host_batch
     from fasterrcnn_torch.data.synthetic import SyntheticDataset
     from fasterrcnn_torch.engine import Engine
 
-    cfg = ModelConfig()
+    cfg = cfg or ModelConfig()
     t0 = time.perf_counter()
     engine = Engine(cfg, seed=0)
-    engine16 = Engine(ModelConfig(compute_dtype="bfloat16"), seed=0)
-    print(f"train engines built in {time.perf_counter() - t0:.1f} s", flush=True)
+    engine16 = Engine(dataclasses.replace(cfg, compute_dtype="bfloat16"), seed=0)
+    print(f"{label}: {cfg.backbone} engines built in {time.perf_counter() - t0:.1f} s", flush=True)
     batch = make_host_batch(list(SyntheticDataset(num_samples=4, seed=0)), (608, 800), cfg.max_gt_boxes)
 
     for fn in counters:
@@ -688,25 +736,146 @@ def phase_main_path_train(counters, steps=10):
     for i in range(steps):
         losses = engine.train_step(batch)
         values = [v.item() for v in losses]
-        check(all(np.isfinite(values)), f"train step {i}: non-finite losses {values}")
+        check(all(np.isfinite(values)), f"{label} step {i}: non-finite losses {values}")
         if i == 0:
-            check(all(v > 0 for v in values), f"train step 0: a loss is not positive: {values}")
+            check(all(v > 0 for v in values), f"{label} step 0: a loss is not positive: {values}")
         totals.append(sum(values))
-    print(f"train f32, one batch repeated: total loss by step {totals!r}", flush=True)
-    check(totals[-1] < totals[0], f"train f32: the loss did not fall over {steps} steps: {totals}")
+    print(f"{label} f32, one batch repeated: total loss by step {totals!r}", flush=True)
+    check(totals[-1] < totals[0], f"{label} f32: the loss did not fall over {steps} steps: {totals}")
     stats = engine.train_epoch(SyntheticDataset(num_samples=8, seed=1), batch_size=4, max_steps=2)
     means = stats.means()
-    print(f"train_epoch f32, 2 steps: {means}", flush=True)
-    check(stats._count == 2 and all(np.isfinite(v) for v in means.values()), f"train_epoch: {means}")
+    print(f"{label} train_epoch f32, 2 steps: {means}", flush=True)
+    check(stats._count == 2 and all(np.isfinite(v) for v in means.values()), f"{label} train_epoch: {means}")
     values16 = []
     for _ in range(2):
         values16.append([v.item() for v in engine16.train_step(batch)])
-    print(f"train bf16, 2 steps: {values16!r}", flush=True)
-    check(all(np.isfinite(values16).ravel()), "train bf16: non-finite losses")
+    print(f"{label} bf16, 2 steps: {values16!r}", flush=True)
+    check(all(np.isfinite(values16).ravel()), f"{label} bf16: non-finite losses")
     check(all(p.dtype == torch.float32 for p in engine16.model.parameters()), "bf16 engine: parameters not f32")
     torch.cuda.synchronize()
-    launches = path_launches(counters, ("nms_keep_mask", "roi_pool_taps", "roi_pool_taps_bwd"), "train path")
+    launches = path_launches(counters, ("nms_keep_mask", "roi_pool_taps", "roi_pool_taps_bwd"), label)
     return engine, engine16, batch, launches
+
+
+def path_roi_parity(engine, engine16, images, image_hw, p_bwd=128):
+    """K2 and K3 against their plain versions on a predict path's own maps
+    and RPN proposals (the f32 engine's map for f32, the bf16 engine's for
+    bf16): K2 identical on every proposal, K3 within `backward_close` on the
+    first `p_bwd` proposals of each image (the train path's RoI count) with
+    a seeded cotangent; each timed beside its plain version and its bound."""
+    import torch
+    from fasterrcnn_torch.models import faster_rcnn as frcnn
+    from fasterrcnn_torch.ops import roi as roi_ops
+    from fasterrcnn_torch.scripts import profile_roi
+    from fasterrcnn_torch.scripts.profile_conv import time_ms
+
+    dev, name = engine.device, engine.model.cfg.backbone
+    grid = frcnn.anchor_grid_for(engine.model.cfg, *images.shape[1:3])
+    centers = torch.as_tensor(grid.centers, device=dev)
+    x, hw = torch.as_tensor(images, device=dev), torch.as_tensor(image_hw, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    results = {}
+    for tag, eng in (("f32", engine), ("bf16", engine16)):
+        with torch.inference_mode():
+            fm, props = frcnn.infer_proposals(eng.model, grid, centers, x, hw)
+            norm, boxes = eng.model.roi_norm(hw), props.boxes
+            got, want = roi_ops.roi_pool_taps(fm, boxes, norm), roi_ops.roi_pool_features(fm, boxes, norm)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            mismatches = int((got != want).sum())
+            b, h, w, c = fm.shape
+            print(f"roi_pool_taps on the {name} predict path's own {tag} map {tuple(fm.shape)} (max |map| "
+                  f"{float(fm.float().abs().max())!r}) and {tuple(boxes.shape)} proposals: max_abs_err {err!r}, "
+                  f"{mismatches} of {got.numel()} values differ (tolerance: identical)", flush=True)
+            check(fm.dtype == (torch.float32 if tag == "f32" else torch.bfloat16), f"{name} {tag} map: {fm.dtype}")
+            check(mismatches == 0, f"roi_pool_taps on the {name} {tag} path: {mismatches} values differ")
+            rois = boxes[:, :p_bwd].contiguous()
+            g = torch.randn((b, p_bwd, 7, 7, c), generator=gen, device=dev).to(fm.dtype)
+            ok, err_bwd = profile_roi.backward_close(roi_ops.roi_pool_taps_bwd(fm, rois, norm, g),
+                                                     roi_ops.roi_pool_taps_bwd_plain(fm, rois, norm, g))
+            print(f"roi_pool_taps_bwd on the {name} {tag} map and its first {p_bwd} proposals an image: "
+                  f"max_abs_err {err_bwd!r} (tolerance: backward_close)", flush=True)
+            check(ok, f"roi_pool_taps_bwd on the {name} {tag} path: outside tolerance, max_abs_err {err_bwd}")
+            fwd = results[f"roi_pool_taps_{tag}"] = dict(
+                max_abs_err=err, mismatches=mismatches,
+                ms=time_ms(lambda: roi_ops.roi_pool_taps(fm, boxes, norm), 20),
+                plain_ms=time_ms(lambda: roi_ops.roi_pool_features(fm, boxes, norm), 3),
+                **profile_roi.forward_bound(fm, boxes, norm), shape=[b, h, w, c, boxes.shape[1]],
+            )
+            bwd = results[f"roi_pool_taps_bwd_{tag}"] = dict(
+                max_abs_err=err_bwd,
+                ms=time_ms(lambda: roi_ops.roi_pool_taps_bwd(fm, rois, norm, g), 20),
+                plain_ms=time_ms(lambda: roi_ops.roi_pool_taps_bwd_plain(fm, rois, norm, g), 3),
+                **profile_roi.backward_bound(fm, rois, norm), shape=[b, h, w, c, p_bwd],
+            )
+        for kernel, row in (("roi_pool_taps", fwd), ("roi_pool_taps_bwd", bwd)):
+            print(f"  {kernel} {tag} on the {name} path: {row['ms']!r} ms, plain {row['plain_ms']!r} ms, "
+                  f"bound {row['bound_ms']!r} ms ({row['bound_by']})", flush=True)
+    return results
+
+
+def phase_predict_only(counters, backbone, images, image_hw):
+    """One f32 predict of `backbone` at score threshold 0.0 through Engine,
+    with every launch count set to 0 before it; it must launch K1 and K2."""
+    import torch
+    from fasterrcnn_torch.config import ModelConfig
+    from fasterrcnn_torch.engine import Engine
+
+    engine = Engine(ModelConfig(backbone=backbone), seed=0)
+    for fn in counters:
+        fn.launches = 0
+    det = engine.predict(images, image_hw, score_threshold=0.0)
+    torch.cuda.synchronize()
+    label = f"{backbone} predict path"
+    launches = path_launches(counters, ("nms_keep_mask", "roi_pool_taps"), label)
+    n = check_detections(det, len(images), 300, image_hw, f"{label} f32 @0.0")
+    print(f"{label}: {n} detections f32 @0.0; max |feature map| {feature_map_peak(engine, images)!r}", flush=True)
+    check(n > 0, f"{label}: no detections at score threshold 0.0")
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def torchvision_resnet_state(rng, backbone):
+    """A torchvision-layout ResNet state dict made from a seed (the names
+    and shapes of torchvision.models.resnet*: conv weights, BN gamma, beta,
+    running mean, positive running variance, num_batches_tracked, the
+    1000-way fc): lecun-normal convs and small bn3 gammas, as trained
+    ResNets have, so that the 33 or more blocks keep finite activations."""
+    import torch
+    from fasterrcnn_torch.models.resnet import ARCHITECTURES
+
+    state = {}
+
+    def conv(name, co, ci, k):
+        std = (1.0 / (ci * k * k)) ** 0.5
+        state[f"{name}.weight"] = torch.from_numpy(rng.normal(0.0, std, (co, ci, k, k)).astype(np.float32))
+
+    def bn(name, c, gamma=(0.5, 1.0)):
+        for key, values in (("weight", rng.uniform(*gamma, c)), ("bias", rng.normal(0.0, 0.1, c)),
+                            ("running_mean", rng.normal(0.0, 0.2, c)), ("running_var", rng.uniform(0.5, 2.0, c))):
+            state[f"{name}.{key}"] = torch.from_numpy(values.astype(np.float32))
+        state[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    in_ch = 64
+    for stage, (n, width) in enumerate(zip(ARCHITECTURES[backbone], (64, 128, 256, 512)), start=1):
+        for i in range(n):
+            pre = f"layer{stage}.{i}"
+            conv(f"{pre}.conv1", width, in_ch, 1)
+            bn(f"{pre}.bn1", width)
+            conv(f"{pre}.conv2", width, width, 3)
+            bn(f"{pre}.bn2", width)
+            conv(f"{pre}.conv3", 4 * width, width, 1)
+            bn(f"{pre}.bn3", 4 * width, gamma=(0.0, 0.2))
+            if i == 0:
+                conv(f"{pre}.downsample.0", 4 * width, in_ch, 1)
+                bn(f"{pre}.downsample.1", 4 * width)
+            in_ch = 4 * width
+    state["fc.weight"] = torch.from_numpy(rng.normal(0.0, 0.01, (1000, 2048)).astype(np.float32))
+    state["fc.bias"] = torch.zeros(1000)
+    return state
 
 
 def phase_fused_roi_op(engine, images, image_hw, counters):
@@ -852,6 +1021,20 @@ def phase_eval_cli(counters, card, trainval=8, test=16, timing=256):
             check(eval_maps[0] == train_maps[1],
                   f"cli: --eval of the saved weights printed {eval_maps[0]}%, the train's final eval {train_maps[1]}%")
 
+            # A ResNet-101 evaluated from a torchvision-layout file, as a
+            # user with torchvision's ImageNet weights runs it.
+            torch.save(torchvision_resnet_state(np.random.default_rng(12), "resnet101"), "resnet101-tv.pth")
+            for fn in counters:
+                fn.launches = 0
+            resnet_out = run_cli(["--eval", "--backbone", "resnet101", "--load-from", "resnet101-tv.pth", *common])
+            torch.cuda.synchronize()
+            resnet_launches = path_launches(counters, ("nms_keep_mask", "roi_pool_taps"), "cli resnet101 eval path")
+            resnet_maps = printed_maps(resnet_out)
+            check("Loaded torchvision ResNet backbone" in resnet_out, "cli resnet101: the torchvision file did not load")
+            check(len(resnet_maps) == 1 and 0.0 <= float(resnet_maps[0]) <= 100.0, f"cli resnet101 mAP {resnet_maps}")
+            print(f"cli --eval --backbone resnet101 --load-from a torchvision-layout file: mAP {resnet_maps[0]}% "
+                  f"({test} test images)", flush=True)
+
             engine = Engine(ModelConfig(), seed=1)
             engine.load_weights("w.pth")
             epoch1 = torch.load(os.path.join("ck", "1", "params.pth"), map_location="cpu", weights_only=True)
@@ -868,7 +1051,7 @@ def phase_eval_cli(counters, card, trainval=8, test=16, timing=256):
             os.chdir(cwd)
     del engine
     torch.cuda.empty_cache()
-    return train_launches, eval_launches, throughput
+    return train_launches, eval_launches, resnet_launches, throughput
 
 
 def eval_throughput(engine, root, card, split_name, batch_size=4, reps=3):
@@ -1069,6 +1252,7 @@ def main() -> None:
     if not os.path.isdir(os.path.join(root, "fasterrcnn_torch")):
         fail(f"no fasterrcnn_torch package beside {__file__}")
     sys.path.insert(0, root)
+    from fasterrcnn_torch.config import ModelConfig
     from fasterrcnn_torch.ops import conv as conv_ops
     from fasterrcnn_torch.ops import nms as nms_ops
     from fasterrcnn_torch.ops import roi as roi_ops
@@ -1122,6 +1306,10 @@ def main() -> None:
     parity_launches = {fn.__name__: fn.launches for fn in counters}
     phase_reference(dev, rng)
     phase_reference_train(dev)
+    # ResNet-50 at the tiny config, on generators of its own: the phases
+    # after it draw what they drew before it.
+    phase_reference(dev, np.random.default_rng(7), backbone="resnet50")
+    phase_reference_train(dev, backbone="resnet50", train_all=True)
     # Each path runs, is timed and profiled with only its own engines on
     # the card, so each peak memory counts that path alone.
     engine, engine16, images, image_hw, launches = phase_main_path(dev, rng, counters)
@@ -1143,13 +1331,41 @@ def main() -> None:
     }, card)
     del train_engine, train_engine16
     torch.cuda.empty_cache()
+
+    # ResNet-101 at full width: predict (frozen mode), K2 and K3 on its own
+    # C=1024 map, timing and profile; then the from-scratch train path.
+    r_engine, r_engine16, r_images, r_hw, r_launches = phase_main_path(
+        dev, np.random.default_rng(11), counters, cfg=ModelConfig(backbone="resnet101"), label="resnet101 predict path")
+    r_parity = path_roi_parity(r_engine, r_engine16, r_images, r_hw)
+    r_timing = phase_timing(r_engine, r_engine16, r_images, r_hw, card)
+    print(json.dumps({"resnet101_predict_timing": r_timing, "card": card}), flush=True)
+    phase_profile({
+        "resnet101 predict f32": lambda: r_engine.predict(r_images, r_hw),
+        "resnet101 predict bf16": lambda: r_engine16.predict(r_images, r_hw),
+    }, card)
+    del r_engine, r_engine16
+    torch.cuda.empty_cache()
+    rt_engine, rt_engine16, r_batch, r_train_launches = phase_main_path_train(
+        counters, cfg=ModelConfig(backbone="resnet101", train_all=True), label="resnet101 train path")
+    r_train_timing = phase_timing_train(rt_engine, rt_engine16, r_batch, card)
+    print(json.dumps({"resnet101_train_timing": r_train_timing, "card": card}), flush=True)
+    phase_profile({
+        "resnet101 train f32": lambda: rt_engine.train_step(r_batch),
+        "resnet101 train bf16": lambda: rt_engine16.train_step(r_batch),
+    }, card)
+    del rt_engine, rt_engine16
+    torch.cuda.empty_cache()
+    other_launches = {f"{name}_predict": phase_predict_only(counters, name, r_images, r_hw)
+                      for name in ("resnet50", "resnet152")}
+
     _, conv_launches = phase_conv_ab(counters, card)
-    cli_train_launches, eval_launches, _ = phase_eval_cli(counters, card)
+    cli_train_launches, eval_launches, cli_resnet_launches, _ = phase_eval_cli(counters, card)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     paths = {"predict": launches, "train": train_launches, "fused_roi_op": fused_launches,
              "conv_ab": conv_launches, "cli_train": cli_train_launches, "eval": eval_launches,
-             "parity": parity_launches}
+             "resnet101_predict": r_launches, "resnet101_train": r_train_launches, **other_launches,
+             "cli_resnet101_eval": cli_resnet_launches, "parity": parity_launches}
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}
@@ -1180,6 +1396,7 @@ def main() -> None:
             "ldg128_instructions": vector_loads["roi_pool_taps"],
             "bf16": parity["roi_bf16"],
             **{k: v for k, v in parity.items() if k.endswith(("_roi_pool_taps_f32", "_roi_pool_taps_bf16"))},
+            "resnet101_path": {tag: r_parity[f"roi_pool_taps_{tag}"] for tag in ("f32", "bf16")},
         },
         {
             "name": "roi_pool_taps_bwd",
@@ -1194,6 +1411,7 @@ def main() -> None:
             "vector_reduction_instructions": vector_reductions,
             **{k: parity[k] for k in ("roi_bwd_bf16", "roi_bwd_f32_relu", "roi_bwd_bf16_relu")},
             **{k: v for k, v in parity.items() if k.endswith(("_roi_pool_taps_bwd_f32", "_roi_pool_taps_bwd_bf16"))},
+            "resnet101_path": {tag: r_parity[f"roi_pool_taps_bwd_{tag}"] for tag in ("f32", "bf16")},
         },
         {
             "name": "roi_pool_fused",

@@ -8,9 +8,8 @@ port's own: --device (default cuda; "cpu" asks for the CPU). There is no
 fallback: --device cuda without a card raises.
 
 Flags whose features are not ported yet raise NotImplementedError naming
-their ROADMAP item: --backbone resnet50|101|152 (A13), --custom-roi-pool
-(A14), --memory-stats, --debug-nans and --profile-dir (A15), --num-devices
-and --tp above 1 (A16).
+their ROADMAP item: --custom-roi-pool (A14), --memory-stats, --debug-nans
+and --profile-dir (A15), --num-devices and --tp above 1 (A16).
 """
 
 from __future__ import annotations
@@ -37,12 +36,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--load-from", metavar="file",
                         help="Load initial model weights from file (the port's "
                              ".pth, the JAX package's msgpack, Caffe/torchvision/"
-                             "Keras VGG-16, or full reference .pth checkpoint)")
+                             "Keras VGG-16, torchvision ResNet, or full "
+                             "reference .pth checkpoint)")
     parser.add_argument("--backbone", metavar="model", default="vgg16",
                         choices=["vgg16", "vgg16-torch", "resnet50",
                                  "resnet101", "resnet152"],
-                        help="Backbone model for feature extraction (ResNet: "
-                             "not ported yet, ROADMAP A13)")
+                        help="Backbone model for feature extraction")
     parser.add_argument("--save-to", metavar="file",
                         help="Save final trained weights to file")
     parser.add_argument("--save-best-to", metavar="file",
@@ -136,7 +135,6 @@ def build_parser() -> argparse.ArgumentParser:
 def check_ported(options) -> None:
     """Raise NotImplementedError for a flag whose feature is not ported."""
     waiting = [
-        (options.backbone.startswith("resnet"), f"--backbone {options.backbone}", "A13"),
         (options.memory_stats, "--memory-stats", "A15"),
         (options.debug_nans, "--debug-nans", "A15"),
         (options.profile_dir is not None, "--profile-dir", "A15"),

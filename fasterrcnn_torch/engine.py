@@ -53,11 +53,12 @@ def resolve_device(device) -> torch.device:
 
 def parameter_labels(model: FasterRCNN) -> Dict[str, str]:
     """Optimizer group of each parameter: "frozen" (the backbone's frozen
-    patterns, unless train_all), "decayed" (conv and dense weights) or
-    "plain" (biases)."""
+    patterns, unless train_all), "decayed" (conv and dense weights, and
+    frozen-BN scales, as the JAX package decays names ending in kernel or
+    scale) or "plain" (biases)."""
     frozen = set(frozen_parameter_names(model))
     return {
-        name: "frozen" if name in frozen else "decayed" if name.endswith("weight") else "plain"
+        name: "frozen" if name in frozen else "decayed" if name.endswith(("weight", "scale")) else "plain"
         for name, _ in model.named_parameters()
     }
 

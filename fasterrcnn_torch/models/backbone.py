@@ -64,7 +64,7 @@ def register_backbone(name: str, factory: Callable[[], BackboneSpec]):
 
 def get_backbone(name: str) -> BackboneSpec:
     # Registration happens when the backbone modules load.
-    from fasterrcnn_torch.models import vgg16  # noqa: F401
+    from fasterrcnn_torch.models import resnet, vgg16  # noqa: F401
 
     if name not in _REGISTRY:
         raise ValueError(f"Unknown backbone '{name}'. Available: {sorted(_REGISTRY)}")

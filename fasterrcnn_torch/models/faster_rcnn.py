@@ -26,6 +26,7 @@ from fasterrcnn_torch.config import ModelConfig
 from fasterrcnn_torch.models.backbone import get_backbone, normalize_images
 from fasterrcnn_torch.models import losses as loss_fns
 from fasterrcnn_torch.models.detector import DetectorHeads
+from fasterrcnn_torch.models.resnet import FrozenBatchNorm
 from fasterrcnn_torch.models.rpn import RPNHead, generate_proposals
 from fasterrcnn_torch.ops import anchors as anchor_ops
 from fasterrcnn_torch.ops import boxes as box_ops
@@ -405,10 +406,17 @@ def init_params(model: FasterRCNN, seed: int = 0) -> None:
     """Initialize every parameter in place from a seeded torch.Generator.
 
     The values are drawn on the CPU, so a seed gives the same weights on
-    every device. Biases are zero.
+    every device. Biases are zero. Frozen BatchNorms are the identity, except
+    each ResNet bottleneck's bn3 under `train_all`, whose scale is 0: every
+    residual branch starts closed, the JAX package's from-scratch init.
     """
     gen = torch.Generator().manual_seed(seed)
     for name, module in model.named_modules():
+        if isinstance(module, FrozenBatchNorm):
+            closed = model.cfg.train_all and name.endswith(".bn3")
+            module.scale.fill_(0.0 if closed else 1.0)
+            module.bias.zero_()
+            continue
         if not isinstance(module, (nn.Conv2d, nn.Linear)):
             continue
         shape = tuple(module.weight.shape)
@@ -419,4 +427,5 @@ def init_params(model: FasterRCNN, seed: int = 0) -> None:
         else:
             w = torch.randn(shape, generator=gen) * std
         module.weight.copy_(w)
-        module.bias.zero_()
+        if module.bias is not None:
+            module.bias.zero_()

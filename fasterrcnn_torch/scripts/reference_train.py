@@ -2,7 +2,8 @@
 
 The tiny config with every anchor a proposal and every box sampled
 (`every_box_config`: the boxes a step trains on then do not hang on
-near-tied scores), full-width VGG-16 on a 128x160 canvas, B=2: the same
+near-tied scores), full-width VGG-16 (or, through `run_draw`'s arguments,
+another backbone, in from-scratch mode) on a 128x160 canvas, B=2: the same
 seeded weights (`init_params(seed=1)`), the same sampling uniforms and the
 same batch on both sides, the CPU running the plain versions and the card
 the kernels, TF32 off. Each draw's batch comes from its own
@@ -58,13 +59,15 @@ import numpy as np
 TOLERANCE = 3e-3
 
 
-def every_box_config():
+def every_box_config(backbone: str = "vgg16", train_all: bool = False):
     """The tiny config with every anchor a proposal (no NMS suppression, no
     size filter, caps above the 720 anchors of the 128x160 canvas) and every
     anchor and proposal sampled."""
     from fasterrcnn_torch.config import AnchorConfig, DetectorConfig, ModelConfig, RPNConfig
 
     return ModelConfig(
+        backbone=backbone,
+        train_all=train_all,
         anchors=AnchorConfig(areas=(24.0 * 24, 48.0 * 48, 96.0 * 96)),
         rpn=RPNConfig(pre_nms_train=720, post_nms_train=720, nms_iou_threshold=1.0, min_proposal_side=0.0,
                       minibatch_size=720, max_positive_fraction=1.0),
@@ -181,13 +184,18 @@ def _pool_flips(cpu, card, images, dev) -> List[Dict[str, int]]:
     return flips
 
 
-def run_draw(dev, seed: int, diagnose: bool = False) -> Dict[str, object]:
-    """Card against CPU on the batch of one seed; see the module docstring."""
+def run_draw(
+    dev, seed: int, diagnose: bool = False, backbone: str = "vgg16", train_all: bool = False
+) -> Dict[str, object]:
+    """Card against CPU on the batch of one seed; see the module docstring.
+    `diagnose` reads VGG-16's 2x2 max pools."""
     import torch
     from fasterrcnn_torch.models import faster_rcnn as frcnn
     from fasterrcnn_torch.ops import roi as roi_ops
 
-    cfg = every_box_config()
+    if diagnose and not backbone.startswith("vgg16"):
+        raise ValueError(f"--diagnose reads VGG-16's max pools, not {backbone}'s")
+    cfg = every_box_config(backbone, train_all)
     cpu = frcnn.FasterRCNN(cfg)
     frcnn.init_params(cpu, seed=1)
     card = frcnn.FasterRCNN(cfg)

@@ -14,14 +14,14 @@ state dict's keys:
   * Caffe and torchvision VGG-16 `.pth` state dicts (`features.N`,
     `classifier.N`): the backbone and fc1/fc2 only, the rest of the model
     keeps its values;
+  * torchvision ResNet-50/101/152 state dicts (`conv1`, `layerN.i.*`):
+    conv1..layer4, each BatchNorm folded into the frozen-BN scale and bias
+    (eps 1e-5); the RPN and detector heads keep their values;
   * the reference's full checkpoints {"epoch", "model_state_dict"} of
     `_stage1_feature_extractor.` keys;
   * the port's own `.pth`, written by `save_weights`;
   * the JAX package's flax msgpack files, decoded with `msgpack` (imported
     when needed), not flax.
-torchvision ResNet state dicts raise NotImplementedError: the ResNet
-backbones are not ported (ROADMAP A13).
-
 Per-epoch training checkpoints (`TrainCheckpointManager`) store the weights
 only: resume restarts the optimizer, so a changed learning rate is honoured.
 """
@@ -49,8 +49,8 @@ VGG16_CONV_LAYERS = tuple(
 # module order in both sources).
 _VGG_FEATURES_INDEX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
 
-# A key only the port's own state dicts carry.
-_OWN_KEY = "feature_extractor.block1_conv1.weight"
+# A key the port's own state dicts carry, whatever the backbone.
+_OWN_KEY = "detector_heads.classifier.weight"
 
 
 def _oihw_to_hwio(w: np.ndarray) -> np.ndarray:
@@ -93,9 +93,12 @@ def _load_torch_file(filepath: str):
 def _set(params: Dict, path: str, value: np.ndarray) -> None:
     node = params
     *parents, leaf = path.split("/")
-    for p in parents:
-        node = node[p]
-    expected = node[leaf].shape
+    try:
+        for p in parents:
+            node = node[p]
+        expected = node[leaf].shape
+    except KeyError:
+        raise ValueError(f"{path}: the model has no such parameter") from None
     if tuple(value.shape) != tuple(expected):
         raise ValueError(f"{path}: shape {value.shape} != expected {expected}")
     node[leaf] = value.astype(np.float32)
@@ -179,6 +182,59 @@ def import_keras_vgg16(filepath: str, params: Dict) -> Dict:
     if missing:
         print(f"Layers missing from '{filepath}': {', '.join(missing)}")
     print(f"Loaded {len(loaded)} VGG-16 layers from Keras model '{filepath}'")
+    return params
+
+
+def _fold_bn(state: Dict[str, np.ndarray], prefix: str, eps: float = 1e-5):
+    """A torch BatchNorm's (gamma, beta, running mean, running var) as the
+    frozen-BN (scale, bias): gamma / sqrt(var + eps), beta - mean * scale."""
+    gamma = state[prefix + ".weight"]
+    beta = state[prefix + ".bias"]
+    mean = state[prefix + ".running_mean"]
+    var = state[prefix + ".running_var"]
+    scale = gamma / np.sqrt(var + eps)
+    return scale, beta - mean * scale
+
+
+def _import_torchvision_resnet_state(state: Dict[str, np.ndarray], params: Dict, filepath: str) -> Dict:
+    """torchvision resnet{50,101,152} state dict -> the frozen-BN tree. Each
+    stage must hold as many bottlenecks as the model's."""
+    if "conv1.weight" not in state or "layer1.0.conv1.weight" not in state:
+        raise ValueError(f"'{filepath}' is not a torchvision ResNet state dict")
+    try:
+        _set(params, "feature_extractor/conv1/kernel", _oihw_to_hwio(state["conv1.weight"]))
+        s, b = _fold_bn(state, "bn1")
+        _set(params, "feature_extractor/bn1/scale", s)
+        _set(params, "feature_extractor/bn1/bias", b)
+        for top, stage in (
+            ("feature_extractor", "layer1"),
+            ("feature_extractor", "layer2"),
+            ("feature_extractor", "layer3"),
+            ("roi_head", "layer4"),
+        ):
+            n = 0
+            while f"{stage}.{n}.conv1.weight" in state:
+                n += 1
+            want = len(params.get(top, {}).get(stage, {}))
+            if n != want:
+                raise ValueError(f"{stage} holds {n} bottlenecks, the model {want}")
+            for i in range(n):
+                src, dst = f"{stage}.{i}", f"{top}/{stage}/block{i}"
+                for conv in ("conv1", "conv2", "conv3"):
+                    _set(params, f"{dst}/{conv}/kernel", _oihw_to_hwio(state[f"{src}.{conv}.weight"]))
+                    sc, bi = _fold_bn(state, f"{src}.bn{conv[-1]}")
+                    _set(params, f"{dst}/bn{conv[-1]}/scale", sc)
+                    _set(params, f"{dst}/bn{conv[-1]}/bias", bi)
+                if f"{src}.downsample.0.weight" in state:
+                    _set(params, f"{dst}/downsample_conv/kernel", _oihw_to_hwio(state[f"{src}.downsample.0.weight"]))
+                    sc, bi = _fold_bn(state, f"{src}.downsample.1")
+                    _set(params, f"{dst}/downsample_bn/scale", sc)
+                    _set(params, f"{dst}/downsample_bn/bias", bi)
+    except KeyError as e:
+        raise ValueError(f"'{filepath}': not a torchvision ResNet of this model: it lacks {e}") from None
+    except ValueError as e:
+        raise ValueError(f"'{filepath}': not a torchvision ResNet of this model: {e}") from None
+    print(f"Loaded torchvision ResNet backbone from '{filepath}'")
     return params
 
 
@@ -305,8 +361,8 @@ def load(model: nn.Module, filepath: str) -> Dict[str, torch.Tensor]:
 
     The format is detected from the file's signature, then, for torch files,
     from the state dict's keys, so a recognized but broken file raises its
-    own importer's error. Partial imports (VGG-16 backbone files) replace
-    only what they carry; the rest keeps the model's current values.
+    own importer's error. Partial imports (VGG-16 and ResNet backbone files)
+    replace only what they carry; the rest keeps the model's current values.
     """
     reference = model.state_dict()
     kind = _sniff_format(filepath)
@@ -317,13 +373,10 @@ def load(model: nn.Module, filepath: str) -> Dict[str, torch.Tensor]:
             raise ValueError(f"'{filepath}' holds a {type(state).__name__}, not a state dict")
         if _OWN_KEY in state:
             return _checked(state, reference, filepath)
-        if "layer1.0.conv1.weight" in state:
-            raise NotImplementedError(
-                f"'{filepath}' is a torchvision ResNet state dict; the ResNet "
-                "backbones are not ported yet (ROADMAP A13)"
-            )
         tree = to_jax_params(reference)
-        if any(k.startswith("_stage1_feature_extractor.") for k in state):
+        if "layer1.0.conv1.weight" in state:
+            tree = _import_torchvision_resnet_state(_to_numpy_state(state), tree, filepath)
+        elif any(k.startswith("_stage1_feature_extractor.") for k in state):
             tree = _import_reference_state(_to_numpy_state(state), tree, filepath)
         elif "features.0.weight" in state:
             tree = _import_torch_vgg16_state(_to_numpy_state(state), tree, filepath)

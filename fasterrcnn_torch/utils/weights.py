@@ -5,7 +5,7 @@ path ("feature_extractor", "block1_conv1", "kernel") becomes the state_dict
 key "feature_extractor.block1_conv1.weight". Layouts:
   * conv kernels: flax HWIO (kh, kw, in, out) <-> torch OIHW (out, in, kh, kw);
   * dense kernels: flax (in, out) <-> torch (out, in);
-  * biases are the same.
+  * biases and frozen-BN scales (1-D) are the same.
 fc1 needs no permutation: both packages flatten pooled RoIs (P, 7, 7, C) in
 HWC order.
 """
@@ -40,7 +40,7 @@ def from_jax_params(np_tree: Mapping) -> Dict[str, torch.Tensor]:
             else:
                 raise ValueError(f"{'/'.join(path)}: kernel of rank {value.ndim}")
             leaf = "weight"
-        elif leaf != "bias":
+        elif leaf not in ("bias", "scale"):
             raise ValueError(f"{'/'.join(path)}: unknown parameter {leaf!r}")
         state[".".join([*module, leaf])] = torch.from_numpy(np.array(value, order="C"))
     return state
@@ -60,7 +60,7 @@ def to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict:
             else:
                 raise ValueError(f"{key}: weight of rank {value.ndim}")
             leaf = "kernel"
-        elif leaf != "bias":
+        elif leaf not in ("bias", "scale"):
             raise ValueError(f"{key}: unknown parameter {leaf!r}")
         node = tree
         for part in module:

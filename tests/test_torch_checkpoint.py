@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import torchvision_resnet_state
 from fasterrcnn_tpu.utils import checkpoint as jax_ckpt
 from fasterrcnn_torch import config as torch_config
 from fasterrcnn_torch.data.pipeline import make_host_batch
@@ -188,11 +189,23 @@ def test_own_weights_are_checked_against_the_model(models, tmp_path):
 
 
 def test_load_raises_for_resnet_unknown_and_empty_files(models, tmp_path):
+    """A torchvision ResNet-50 file loads into a ResNet-50 model
+    (`tests/test_torch_resnet.py` holds it to JAX's import); a malformed one,
+    and a ResNet file given to the VGG-16 model, raise the importer's
+    ValueError. Unknown, empty and unparsable files raise too."""
     _, port = models
+    resnet50 = torch_frcnn.FasterRCNN(torch_config.ModelConfig(backbone="resnet50"))
     resnet = str(tmp_path / "resnet50.pth")
-    torch.save({"conv1.weight": torch.zeros(64, 3, 7, 7), "layer1.0.conv1.weight": torch.zeros(64, 64, 1, 1)}, resnet)
-    with pytest.raises(NotImplementedError, match="A13"):
+    state = torchvision_resnet_state(np.random.default_rng(8), "resnet50")
+    torch.save(state, resnet)
+    loaded = checkpoint.load(resnet50, resnet)
+    assert torch.equal(loaded["feature_extractor.conv1.weight"], state["conv1.weight"])
+    assert torch.equal(loaded["roi_head.layer4.block2.conv3.weight"], state["layer4.2.conv3.weight"])
+    with pytest.raises(ValueError, match="not a torchvision ResNet of this model"):
         checkpoint.load(port, resnet)
+    torch.save({"conv1.weight": torch.zeros(64, 3, 7, 7), "layer1.0.conv1.weight": torch.zeros(64, 64, 1, 1)}, resnet)
+    with pytest.raises(ValueError, match="not a torchvision ResNet of this model.*bn1"):
+        checkpoint.load(resnet50, resnet)
     other = str(tmp_path / "other.pth")
     torch.save({"something.weight": torch.zeros(3)}, other)
     with pytest.raises(ValueError, match="unknown layout"):

@@ -134,9 +134,6 @@ def test_cli_dump_anchors_renders_deferred_voc(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--backbone", "resnet50"], "A13"),
-    (["--backbone", "resnet101"], "A13"),
-    (["--backbone", "resnet152"], "A13"),
     (["--custom-roi-pool"], "A14"),
     (["--memory-stats"], "A15"),
     (["--debug-nans"], "A15"),
@@ -147,6 +144,40 @@ def test_cli_dump_anchors_renders_deferred_voc(tmp_path, monkeypatch):
 def test_cli_waiting_flags_raise_naming_their_item(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main([*TRAIN, "--epochs", "1", *flags])
+
+
+@pytest.mark.parametrize("backbone", ["resnet50", "resnet101", "resnet152"])
+def test_cli_runs_the_resnet_backbones(tmp_path, monkeypatch, backbone):
+    """--backbone resnet50 trains one epoch on the CPU with finite losses;
+    resnet101 and resnet152 build their engine (nothing else to do), whose
+    stages hold the architecture's bottlenecks, and --train-all starts each
+    bottleneck's bn3 closed (scale 0)."""
+    from fasterrcnn_torch import engine as engine_mod
+    from fasterrcnn_torch.models.resnet import ARCHITECTURES
+
+    built = []
+
+    class RecordingEngine(engine_mod.Engine):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            built.append(self)
+
+    monkeypatch.setattr(engine_mod, "Engine", RecordingEngine)
+    if backbone == "resnet50":
+        cli.main([*TINY, "--train", "--synthetic", "2", "--epochs", "1", "--backbone", backbone, "--log-csv", "log.csv"])
+        header, row = (tmp_path / "log.csv").read_text().strip().splitlines()
+        losses = {k: float(v) for k, v in zip(header.split(","), row.split(",")) if k.endswith("loss")}
+        assert len(losses) == 5 and all(np.isfinite(v) and v > 0 for v in losses.values()), losses
+    else:
+        cli.main([*TINY, "--backbone", backbone, "--train-all"])
+    (engine,) = built
+    model = engine.model
+    assert model.spec.name == backbone and model.cfg.train_all == (backbone != "resnet50")
+    stages = (model.feature_extractor.layer1, model.feature_extractor.layer2, model.feature_extractor.layer3,
+              model.roi_head.layer4)
+    assert tuple(len(s) for s in stages) == ARCHITECTURES[backbone]
+    closed = all(bool((b.bn3.scale == 0).all()) for s in stages for b in s)
+    assert closed == model.cfg.train_all
 
 
 def test_cli_device_cuda_without_a_card_raises(monkeypatch):
