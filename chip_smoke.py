@@ -69,6 +69,18 @@ result line):
      train_epoch, two bf16 steps, K1-K3 launched; train timing and profile;
      then one f32 predict each of ResNet-50 and ResNet-152 on the same
      images, K1 and K2 launched.
+  6x. exact RoIPool (roi_mode "exact_pool"), VGG-16 and ResNet-101 at full
+     width through Engine on phase 5's images and phase 6's batch: predict
+     f32 (TF32 off) and bf16 at score thresholds 0.05 and 0.0; on that
+     path's own maps and proposals `roi_pool_exact` identical to the same
+     function on CPU copies in f32 and bf16, and its f32 map cotangent of a
+     seeded cotangent within 1e-6 of the CPU's largest |value|; 5 f32 train
+     steps with a falling loss (ResNet-101 from scratch, train_all), two of
+     train_epoch, two bf16; K1 launched, K2 and K3 not; predict and train
+     times and peak device memory beside the crop path's of this run.
+  6o. overfit proxy: `fasterrcnn_torch.scripts.overfit_sanity` at its recipe
+     (150 epochs on 4 synthetic images) for VGG-16 and ResNet-50, each with
+     the crop and with exact RoIPool; each must reach 90% train mAP.
   5b. the fused RoI op (K4's path): `roi_pool_fused`, the public op, on
      the predict path's own f32 feature map and RPN proposals; it must
      launch K4 and equal `roi_pool_fused_plain` and `roi_pool_taps` there,
@@ -92,7 +104,9 @@ result line):
      the train path must launch K1-K3 and the eval path K1 and K2. Then
      --eval --backbone resnet101 --load-from a torchvision-layout ResNet-101
      file the script writes from a seed: the file must load, the mAP lie in
-     [0, 100], and K1 and K2 launch. Then
+     [0, 100], and K1 and K2 launch. Then --eval --custom-roi-pool
+     --load-from the saved weights: the mAP in [0, 100], K1 launched, K2
+     not. Then
      Engine.evaluate's throughput over the test split, fed by the reader
      (JPEG decode in the prefetch thread) and fed decoded samples.
   7. timing (VGG-16 and ResNet-101, each after its paths): Engine.predict
@@ -638,13 +652,15 @@ def check_detections(det, b, max_det, image_hw, label):
     return int(v.sum())
 
 
-def path_launches(counters, required, label):
+def path_launches(counters, required, label, absent=()):
     """Every kernel's launches on the path just run; each of `required`
-    must have launched."""
+    must have launched, and none of `absent`."""
     launches = {fn.__name__: fn.launches for fn in counters}
     print(f"{label} launches: {launches}", flush=True)
     for name in required:
         check(launches[name] > 0, f"{label}: kernel {name} was never launched")
+    for name in absent:
+        check(launches[name] == 0, f"{label}: kernel {name} was launched {launches[name]} times, off its path")
     return launches
 
 
@@ -659,10 +675,12 @@ def feature_map_peak(engine, images):
         return float(fm.float().abs().max())
 
 
-def phase_main_path(dev, rng, counters, canvas=(608, 800), extents=MAIN_EXTENTS, cfg=None, label="main path"):
+def phase_main_path(dev, rng, counters, canvas=(608, 800), extents=MAIN_EXTENTS, cfg=None, label="main path",
+                    images=None):
     """The predict path of `cfg` (default: ModelConfig(), VGG-16), f32 and
     bf16, with every launch count in `counters` set to 0 before it; it must
-    launch K1 and K2."""
+    launch K1 and K2 (K1 and not K2 under roi_mode "exact_pool"). The
+    images are drawn from `rng`, or given as (images, image_hw)."""
     import dataclasses
 
     import torch
@@ -672,7 +690,7 @@ def phase_main_path(dev, rng, counters, canvas=(608, 800), extents=MAIN_EXTENTS,
 
     cfg = cfg or ModelConfig()
     b = len(extents)
-    images, image_hw = main_path_images(rng, extents, canvas)
+    images, image_hw = images if images is not None else main_path_images(rng, extents, canvas)
     t0 = time.perf_counter()
     engine = Engine(cfg, seed=0)
     engine16 = Engine(dataclasses.replace(cfg, compute_dtype="bfloat16"), seed=0)
@@ -688,7 +706,10 @@ def phase_main_path(dev, rng, counters, canvas=(608, 800), extents=MAIN_EXTENTS,
     det16_05 = engine16.predict(images, image_hw, score_threshold=0.05)
     det16 = engine16.predict(images, image_hw, score_threshold=0.0)
     torch.cuda.synchronize()
-    launches = path_launches(counters, ("nms_keep_mask", "roi_pool_taps"), label)
+    if cfg.roi_mode == "exact_pool":
+        launches = path_launches(counters, ("nms_keep_mask",), label, absent=("roi_pool_taps", "roi_pool_taps_bwd"))
+    else:
+        launches = path_launches(counters, ("nms_keep_mask", "roi_pool_taps"), label)
 
     n05 = check_detections(det05, b, 300, image_hw, f"{label} predict f32 @0.05")
     n0 = check_detections(det0, b, 300, image_hw, f"{label} predict f32 @0.0")
@@ -714,7 +735,8 @@ def phase_main_path(dev, rng, counters, canvas=(608, 800), extents=MAIN_EXTENTS,
 def phase_main_path_train(counters, steps=10, cfg=None, label="train path"):
     """The train path of `cfg` (default: ModelConfig(), VGG-16) at full
     width through Engine, with every launch count in `counters` set to 0
-    before it; it must launch K1-K3."""
+    before it; it must launch K1-K3 (K1 and neither K2 nor K3 under
+    roi_mode "exact_pool")."""
     import dataclasses
 
     import torch
@@ -753,7 +775,10 @@ def phase_main_path_train(counters, steps=10, cfg=None, label="train path"):
     check(all(np.isfinite(values16).ravel()), f"{label} bf16: non-finite losses")
     check(all(p.dtype == torch.float32 for p in engine16.model.parameters()), "bf16 engine: parameters not f32")
     torch.cuda.synchronize()
-    launches = path_launches(counters, ("nms_keep_mask", "roi_pool_taps", "roi_pool_taps_bwd"), label)
+    if cfg.roi_mode == "exact_pool":
+        launches = path_launches(counters, ("nms_keep_mask",), label, absent=("roi_pool_taps", "roi_pool_taps_bwd"))
+    else:
+        launches = path_launches(counters, ("nms_keep_mask", "roi_pool_taps", "roi_pool_taps_bwd"), label)
     return engine, engine16, batch, launches
 
 
@@ -946,6 +971,157 @@ def phase_conv_ab(counters, card):
     return rows, launches
 
 
+def exact_pool_parity(engine, engine16, images, image_hw, p_bwd=128):
+    """`roi_pool_exact` on an exact-pool predict path's own maps and RPN
+    proposals (the f32 engine's map for f32, the bf16 engine's for bf16)
+    against the same function on CPU copies: identical values (gathers and
+    maxes do not round); in f32 also the map cotangent of a seeded
+    cotangent on the first `p_bwd` proposals an image (the train path's RoI
+    count), within 1e-6 of the CPU's largest |value| (the card's sums over
+    RoIs are atomic adds, the CPU's run in order). Each timed (CUDA events,
+    the op's one host read of the widest bin included) with the peak device
+    memory of its call."""
+    import torch
+    from fasterrcnn_torch.models import faster_rcnn as frcnn
+    from fasterrcnn_torch.ops import roi as roi_ops
+    from fasterrcnn_torch.scripts.profile_conv import time_ms
+
+    dev, name = engine.device, engine.model.cfg.backbone
+    scale = 1.0 / engine.model.spec.feature_pixels
+    grid = frcnn.anchor_grid_for(engine.model.cfg, *images.shape[1:3])
+    centers = torch.as_tensor(grid.centers, device=dev)
+    x, hw = torch.as_tensor(images, device=dev), torch.as_tensor(image_hw, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(10)
+
+    def peak_of(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - resident
+
+    results = {}
+    for tag, eng in (("f32", engine), ("bf16", engine16)):
+        with torch.inference_mode():
+            fm, props = frcnn.infer_proposals(eng.model, grid, centers, x, hw)
+        fm, boxes = fm.clone(), props.boxes.clone()
+        b, h, w, c = fm.shape
+        with torch.no_grad():
+            got, peak = peak_of(lambda: roi_ops.roi_pool_exact(fm, boxes, scale))
+            t0 = time.perf_counter()
+            want = roi_ops.roi_pool_exact(fm.cpu(), boxes.cpu(), scale)
+            cpu_s = time.perf_counter() - t0
+        mismatches = int((got.cpu() != want).sum())
+        err = float((got.cpu().float() - want.float()).abs().max())
+        print(f"roi_pool_exact on the {name} exact-pool predict path's own {tag} map {tuple(fm.shape)} and "
+              f"{tuple(boxes.shape)} proposals: {mismatches} of {got.numel()} values differ from the CPU's, "
+              f"max_abs_err {err!r} (tolerance: identical); CPU {cpu_s:.1f} s", flush=True)
+        check(got.dtype == fm.dtype and mismatches == 0, f"roi_pool_exact on the {name} {tag} path: card vs CPU")
+        with torch.no_grad():
+            row = results[tag] = dict(
+                max_abs_err=err, mismatches=mismatches, peak_bytes=peak, shape=[b, h, w, c, boxes.shape[1]],
+                ms=time_ms(lambda: roi_ops.roi_pool_exact(fm, boxes, scale), 10),
+            )
+        if tag == "f32":
+            rois = boxes[:, :p_bwd].contiguous()
+            g = torch.randn((b, p_bwd, 7, 7, c), generator=gen, device=dev)
+            grads = []
+            for device in (dev, torch.device("cpu")):
+                leaf = fm.detach().to(device).requires_grad_()
+                roi_ops.roi_pool_exact(leaf, rois.to(device), scale).backward(g.to(device))
+                grads.append(leaf.grad.cpu())
+            scale_ref = float(grads[1].abs().max())
+            err_bwd = float((grads[0] - grads[1]).abs().max())
+            print(f"roi_pool_exact map cotangent on the {name} f32 map and its first {p_bwd} proposals an image: "
+                  f"max_abs_err {err_bwd!r} against the CPU's (max |CPU| {scale_ref!r}; tolerance 1e-6 of it)",
+                  flush=True)
+            check(err_bwd <= 1e-6 * scale_ref, f"roi_pool_exact backward on the {name} path: {err_bwd}")
+            bins, rows, cols, chunk = roi_ops._exact_plan(fm, rois, scale, 7)
+            _, peak_bwd = peak_of(lambda: roi_ops.roi_pool_exact_bwd(fm, bins, g, rows, cols, chunk))
+            row.update(bwd_max_abs_err=err_bwd, bwd_peak_bytes=peak_bwd, bwd_rois=p_bwd, rows=rows, cols=cols,
+                       chunk=chunk, bwd_ms=time_ms(lambda: roi_ops.roi_pool_exact_bwd(fm, bins, g, rows, cols, chunk), 5))
+        print(f"  roi_pool_exact {tag} on the {name} path: {row['ms']!r} ms, peak {row['peak_bytes']} bytes"
+              + (f"; backward at {p_bwd} RoIs an image {row['bwd_ms']!r} ms, peak {row['bwd_peak_bytes']} bytes "
+                 f"(widest bin {row['rows']} rows x {row['cols']} columns, {row['chunk']} RoIs a chunk)"
+                 if tag == "f32" else ""), flush=True)
+    return results
+
+
+def phase_exact_pool(dev, counters, card, images, image_hw, crop):
+    """Phase 6x: roi_mode "exact_pool" at full width, VGG-16 and ResNet-101,
+    through Engine on phase 5's images: the predict path (f32 with TF32 off
+    and bf16, score thresholds 0.05 and 0.0) and `exact_pool_parity` on its
+    own maps, predict timing; then the train path on phase 6's batch (5 f32
+    steps with a falling loss, ResNet-101 in from-scratch mode as phase 6r),
+    train timing. Each path must launch K1 and neither K2 nor K3. Times and
+    peak memory are printed beside the crop path's of this run (`crop`)."""
+    import dataclasses
+
+    import torch
+    from fasterrcnn_torch.config import ModelConfig
+
+    out, launches = {}, {}
+    for backbone in ("vgg16", "resnet101"):
+        cfg = ModelConfig(backbone=backbone, roi_mode="exact_pool")
+        engine, engine16, _, _, launches[f"{backbone}_exact_predict"] = phase_main_path(
+            dev, None, counters, cfg=cfg, label=f"{backbone} exact_pool predict path", images=(images, image_hw))
+        parity = exact_pool_parity(engine, engine16, images, image_hw)
+        timing = phase_timing(engine, engine16, images, image_hw, card)
+        del engine, engine16
+        torch.cuda.empty_cache()
+        t_engine, t_engine16, batch, launches[f"{backbone}_exact_train"] = phase_main_path_train(
+            counters, steps=5, cfg=dataclasses.replace(cfg, train_all=backbone != "vgg16"),
+            label=f"{backbone} exact_pool train path")
+        train_timing = phase_timing_train(t_engine, t_engine16, batch, card)
+        del t_engine, t_engine16
+        torch.cuda.empty_cache()
+        out[backbone] = {"roi_pool_exact": parity, "predict_timing": timing, "train_timing": train_timing}
+        for call, exact, base in (("Engine.predict", timing, crop[backbone]["predict"]),
+                                  ("Engine.train_step", train_timing, crop[backbone]["train"])):
+            print(f"{backbone} {call} exact_pool vs crop: f32 TF32 off {exact['f32_tf32_off']['median_ms']!r} vs "
+                  f"{base['f32_tf32_off']['median_ms']!r} ms, cuDNN TF32 {exact['f32_cudnn_tf32_on']['median_ms']!r} vs "
+                  f"{base['f32_cudnn_tf32_on']['median_ms']!r} ms, bf16 {exact['bf16']['median_ms']!r} vs "
+                  f"{base['bf16']['median_ms']!r} ms; f32 peak device memory {exact['f32_peak_mem_bytes']} vs "
+                  f"{base['f32_peak_mem_bytes']} bytes (resident {exact['resident_bytes']} vs "
+                  f"{base['resident_bytes']}) [{card}]", flush=True)
+    print(json.dumps({"exact_pool": out, "card": card}), flush=True)
+    return out, launches
+
+
+def phase_overfit(counters, card, epochs=150):
+    """Phase 6o: `fasterrcnn_torch.scripts.overfit_sanity` at its recipe on
+    the card, VGG-16 and ResNet-50 each with the crop and with exact
+    RoIPool; each must reach 90% train mAP (the script exits below it) and
+    launch K1, and K2 and K3 on the crop runs only. The script reads its
+    backbone and epochs from OVERFIT_BACKBONE and OVERFIT_EPOCHS."""
+    import torch
+    from fasterrcnn_torch.scripts import overfit_sanity
+
+    os.environ["OVERFIT_EPOCHS"] = str(epochs)
+    results, launches = {}, {}
+    t0 = time.perf_counter()
+    for backbone, roi_mode in (("vgg16", "crop"), ("resnet50", "crop"), ("vgg16", "exact_pool"),
+                               ("resnet50", "exact_pool")):
+        label = f"overfit {backbone} {roi_mode}"
+        for fn in counters:
+            fn.launches = 0
+        t1 = time.perf_counter()
+        os.environ["OVERFIT_BACKBONE"] = backbone
+        mAP = overfit_sanity.main(device="cuda", roi_mode=roi_mode)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        crop = roi_mode == "crop"
+        launches[f"overfit_{backbone}_{roi_mode}"] = path_launches(
+            counters, ("nms_keep_mask", "roi_pool_taps", "roi_pool_taps_bwd") if crop else ("nms_keep_mask",), label,
+            absent=() if crop else ("roi_pool_taps", "roi_pool_taps_bwd"))
+        results[f"{backbone}_{roi_mode}"] = {"map_pct": mAP, "epochs": epochs, "seconds": seconds}
+        print(f"{label}: train-set mAP {mAP!r}% after {epochs} epochs in {seconds:.1f} s (bar 90%) [{card}]",
+              flush=True)
+    print(json.dumps({"overfit": results, "seconds": time.perf_counter() - t0, "card": card}), flush=True)
+    return results, launches
+
+
 def run_cli(args):
     """`python -m fasterrcnn_torch` in this process (`__main__.main(args)`),
     its standard output captured; the lines a user reads for the result are
@@ -1035,6 +1211,19 @@ def phase_eval_cli(counters, card, trainval=8, test=16, timing=256):
             print(f"cli --eval --backbone resnet101 --load-from a torchvision-layout file: mAP {resnet_maps[0]}% "
                   f"({test} test images)", flush=True)
 
+            # The saved weights evaluated with exact RoIPool, as a user runs a
+            # RoIPool-trained checkpoint.
+            for fn in counters:
+                fn.launches = 0
+            exact_out = run_cli(["--eval", "--custom-roi-pool", "--load-from", "w.pth", *common])
+            torch.cuda.synchronize()
+            exact_launches = path_launches(counters, ("nms_keep_mask",), "cli --custom-roi-pool eval path",
+                                           absent=("roi_pool_taps", "roi_pool_taps_bwd"))
+            exact_maps = printed_maps(exact_out)
+            check(len(exact_maps) == 1 and 0.0 <= float(exact_maps[0]) <= 100.0, f"cli exact_pool mAP {exact_maps}")
+            print(f"cli --eval --custom-roi-pool --load-from w.pth: mAP {exact_maps[0]}% ({test} test images)",
+                  flush=True)
+
             engine = Engine(ModelConfig(), seed=1)
             engine.load_weights("w.pth")
             epoch1 = torch.load(os.path.join("ck", "1", "params.pth"), map_location="cpu", weights_only=True)
@@ -1051,7 +1240,7 @@ def phase_eval_cli(counters, card, trainval=8, test=16, timing=256):
             os.chdir(cwd)
     del engine
     torch.cuda.empty_cache()
-    return train_launches, eval_launches, resnet_launches, throughput
+    return train_launches, eval_launches, resnet_launches, exact_launches, throughput
 
 
 def eval_throughput(engine, root, card, split_name, batch_size=4, reps=3):
@@ -1244,6 +1433,7 @@ def phase_profile(calls, card, reps=3):
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1358,14 +1548,22 @@ def main() -> None:
     other_launches = {f"{name}_predict": phase_predict_only(counters, name, r_images, r_hw)
                       for name in ("resnet50", "resnet152")}
 
+    # Exact RoIPool at full width on phase 5's images and phase 6's batch,
+    # beside this run's crop paths; then the overfit proxy.
+    crop = {"vgg16": {"predict": timing, "train": train_timing},
+            "resnet101": {"predict": r_timing, "train": r_train_timing}}
+    _, exact_launches = phase_exact_pool(dev, counters, card, images, image_hw, crop)
+    _, overfit_launches = phase_overfit(counters, card)
+
     _, conv_launches = phase_conv_ab(counters, card)
-    cli_train_launches, eval_launches, cli_resnet_launches, _ = phase_eval_cli(counters, card)
+    cli_train_launches, eval_launches, cli_resnet_launches, cli_exact_launches, _ = phase_eval_cli(counters, card)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     paths = {"predict": launches, "train": train_launches, "fused_roi_op": fused_launches,
              "conv_ab": conv_launches, "cli_train": cli_train_launches, "eval": eval_launches,
              "resnet101_predict": r_launches, "resnet101_train": r_train_launches, **other_launches,
-             "cli_resnet101_eval": cli_resnet_launches, "parity": parity_launches}
+             "cli_resnet101_eval": cli_resnet_launches, **exact_launches, **overfit_launches,
+             "cli_exact_pool_eval": cli_exact_launches, "parity": parity_launches}
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}
@@ -1454,6 +1652,7 @@ def main() -> None:
             "conv2_1": {"f32": parity["conv2_1_f32"], "bf16": parity["conv2_1_bf16"]},
         },
     ]
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

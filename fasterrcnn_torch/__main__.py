@@ -8,8 +8,8 @@ port's own: --device (default cuda; "cpu" asks for the CPU). There is no
 fallback: --device cuda without a card raises.
 
 Flags whose features are not ported yet raise NotImplementedError naming
-their ROADMAP item: --custom-roi-pool (A14), --memory-stats, --debug-nans
-and --profile-dir (A15), --num-devices and --tp above 1 (A16).
+their ROADMAP item: --memory-stats, --debug-nans and --profile-dir (A15),
+--num-devices and --tp above 1 (A16).
 """
 
 from __future__ import annotations
@@ -108,7 +108,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--seed", metavar="n", type=int, default=0)
     parser.add_argument("--custom-roi-pool", action="store_true",
                         help="Use exact RoIPool quantization instead of "
-                             "crop-and-resize (not ported yet, ROADMAP A14)")
+                             "crop-and-resize (use when loading RoIPool-trained "
+                             "reference checkpoints)")
     parser.add_argument("--tiny", action="store_true",
                         help="Smoke-test mode: small synthetic images and "
                              "reduced proposal caps")

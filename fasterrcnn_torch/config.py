@@ -78,8 +78,8 @@ class ModelConfig:
     max_gt_boxes: int = 56
     # Compute type of the conv/matmul layers: "float32" or "bfloat16".
     compute_dtype: str = "float32"
-    # "crop" = 14x14 bilinear crop + 2x2 max pool. "exact_pool" (torchvision
-    # RoIPool quantization) is not ported yet.
+    # "crop" = 14x14 bilinear crop + 2x2 max pool; "exact_pool" = torchvision
+    # RoIPool quantization (--custom-roi-pool), for RoIPool-trained checkpoints.
     roi_mode: str = "crop"
     train_all: bool = False
 

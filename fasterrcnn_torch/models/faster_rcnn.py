@@ -82,10 +82,8 @@ class FasterRCNN(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.roi_mode != "crop":
-            raise NotImplementedError(
-                f"roi_mode={cfg.roi_mode!r} (exact RoIPool, --custom-roi-pool) is not ported yet (ROADMAP A14)"
-            )
+        if cfg.roi_mode not in ("crop", "exact_pool"):
+            raise ValueError(f"roi_mode={cfg.roi_mode!r}: expected 'crop' or 'exact_pool'")
         self.cfg = cfg
         self.spec = get_backbone(cfg.backbone)
         freeze = not cfg.train_all
@@ -121,9 +119,15 @@ class FasterRCNN(nn.Module):
         """RoI pooling + heads over a padded (B, S, 4) box set.
 
         All images' RoIs run through the heads as one (B*S, ...) stack.
-        Returns (B, S, C) class logits and (B, S, 4*(C-1)) box deltas.
+        Returns (B, S, C) class logits and (B, S, 4*(C-1)) box deltas. The
+        pooling is the crop (`roi_pool_taps`, K2 and K3 on a card) or, for
+        roi_mode "exact_pool", torchvision's RoIPool (`roi_pool_exact`, on
+        the whole canvas map at 1 / feature_pixels; no norm).
         """
-        pooled = roi_ops.roi_pool_taps(fm, roi_boxes, self.roi_norm(image_hw))
+        if self.cfg.roi_mode == "exact_pool":
+            pooled = roi_ops.roi_pool_exact(fm, roi_boxes, 1.0 / self.spec.feature_pixels, roi_ops.OUTPUT_SIZE)
+        else:
+            pooled = roi_ops.roi_pool_taps(fm, roi_boxes, self.roi_norm(image_hw))
         bsz, s = pooled.shape[0], pooled.shape[1]
         vec = self.roi_head(pooled.reshape(bsz * s, *pooled.shape[2:]))
         class_logits, box_deltas = self.detector_heads(vec)

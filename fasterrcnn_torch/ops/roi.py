@@ -20,6 +20,11 @@ that rounding) on a CUDA tensor and running `roi_pool_fused_plain` (the
 sheets) on a CPU tensor. In bf16 each rounds where its TPU kernel rounds.
 All take a fixed number of padded RoIs; rows of invalid RoIs are garbage
 that callers mask out.
+
+`roi_pool_exact` is the other RoI mode (`roi_mode="exact_pool"`): torchvision's
+RoIPool quantization on the whole canvas map, in PyTorch ops on the tensor's
+device (the JAX op is XLA, no Pallas kernel), with the JAX op's map cotangent
+(`RoIPoolExact`).
 """
 
 from __future__ import annotations
@@ -341,3 +346,185 @@ def roi_pool_fused(
 
 
 roi_pool_fused.launches = 0
+
+
+# Elements one RoI chunk's row gather (B, chunk, 7, rows, W, C) may hold, at
+# most; `_exact_plan` also keeps it within a quarter of one image's P*H*W*C
+# (JAX's masked row stage is 7*P*H*W*C an image). The backward holds about
+# four tensors of the gather's size. At ResNet-101's train shape (B=4, 128
+# RoIs an image on a 38x50x1024 map, widest bin 7 rows) the quarter binds:
+# 6 RoIs a chunk, 60M elements.
+EXACT_CHUNK_ELEMENTS = 1 << 28
+
+
+def exact_bins(rois: torch.Tensor, spatial_scale: float, output_size: int, h: int, w: int):
+    """Torchvision RoIPool's bins of (..., P, 4) boxes (y1, x1, y2, x2) on an
+    (h, w) map: (row start, row end, column start, column end), each
+    (..., P, output_size) int64, ends exclusive.
+
+    Corners are floor(v * spatial_scale + 0.5) in f32 (C++ round: half away
+    from zero, so x1 = 8 at 1/16 goes up; torch.round would round half to
+    even), then int32. Each side's span is max(hi - lo + 1, 1) cells; bin b
+    covers [lo + span*b // out, lo + ceil(span*(b+1) / out)) in integer
+    arithmetic, both ends clipped to [0, size] of the whole map.
+    """
+    corners = torch.floor(rois.float() * spatial_scale + 0.5).to(torch.int32).long()
+    b = torch.arange(output_size, device=rois.device)
+
+    def edges(lo, hi, size):
+        span = torch.clamp(hi - lo + 1, min=1)[..., None]
+        starts = (span * b) // output_size + lo[..., None]
+        ends = (span * (b + 1) + output_size - 1) // output_size + lo[..., None]
+        return starts.clamp(0, size), ends.clamp(0, size)
+
+    return (*edges(corners[..., 0], corners[..., 2], h), *edges(corners[..., 1], corners[..., 3], w))
+
+
+def _exact_slots(starts: torch.Tensor, ends: torch.Tensor, n: int, size: int) -> torch.Tensor:
+    """(..., out) bin edges -> (..., out, n) cell indices; a slot past its
+    bin's end gets `size`, the -inf padding cell."""
+    cells = starts[..., None] + torch.arange(n, device=starts.device)
+    return torch.where(cells < ends[..., None], cells, size)
+
+
+def _pad_neg_inf(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """x with one -inf slice appended along `dim`."""
+    shape = list(x.shape)
+    shape[dim] = 1
+    return torch.cat([x, x.new_full(shape, float("-inf"))], dim=dim)
+
+
+def _exact_chunk(fm_pad: torch.Tensor, bins, rows: int, cols: int):
+    """The two max stages of one RoI chunk, rows first as the JAX op
+    reduces, on the map with a -inf row appended (B, H+1, W, C): (B, c, out)
+    bins -> the row gather (B, c, out, rows, W, C) and its row indices, the
+    row maxima (B, c, out, W, C), the column gather of the row maxima
+    (B, c, out, out, cols, C) and its column indices, and the bin maxima
+    (B, c, out, out, C). Slots past a bin's end read -inf."""
+    bsz, h1, w, ch = fm_pad.shape
+    ys, ye, xs, xe = bins
+    c, out = ys.shape[1], ys.shape[2]
+    dev = fm_pad.device
+    # Row gather: whole (W, C) rows of the flattened (B * (H+1)) maps.
+    r_idx = _exact_slots(ys, ye, rows, h1 - 1)  # (B, c, out, rows)
+    base = (torch.arange(bsz, device=dev) * h1)[:, None, None, None]
+    xr = fm_pad.reshape(bsz * h1, w, ch).index_select(0, (base + r_idx).reshape(-1)).view(bsz, c, out, rows, w, ch)
+    rowmax = xr.amax(dim=3)  # (B, c, out, W, C)
+    # Column gather: whole C vectors of the flattened (B * c * out * (W+1))
+    # row maxima, for each bin row i and bin column j.
+    c_idx = _exact_slots(xs, xe, cols, w)  # (B, c, out, cols)
+    line = torch.arange(bsz * c * out, device=dev).view(bsz, c, out, 1, 1) * (w + 1)
+    flat = (line + c_idx[:, :, None]).reshape(-1)  # (B, c, out_i, out_j, cols)
+    xc = _pad_neg_inf(rowmax, 3).reshape(-1, ch).index_select(0, flat).view(bsz, c, out, out, cols, ch)
+    return xr, r_idx, rowmax, xc, c_idx, xc.amax(dim=4)
+
+
+def _exact_plan(feature_map: torch.Tensor, rois: torch.Tensor, spatial_scale: float, output_size: int):
+    """The bins, the widest bin's rows and columns (read to the host once)
+    and the RoIs a chunk: as many as keep the row gather within
+    EXACT_CHUNK_ELEMENTS and a quarter of P*H*W*C, but at least one."""
+    bsz, h, w, c = feature_map.shape
+    budget = min(EXACT_CHUNK_ELEMENTS, rois.shape[1] * h * w * c // 4)
+    bins = exact_bins(rois, spatial_scale, output_size, h, w)
+    ys, ye, xs, xe = bins
+    rows, cols = (max(int(v), 1) for v in torch.stack([(ye - ys).max(), (xe - xs).max()]).tolist())
+    chunk = max(1, budget // (bsz * output_size * rows * w * c))
+    return bins, rows, cols, chunk
+
+
+class RoIPoolExact(torch.autograd.Function):
+    """Exact RoIPool over RoI chunks, with the map cotangent of the JAX op's
+    two max stages. Saves the map and the bins, not the gathers: the
+    backward recomputes each chunk's."""
+
+    @staticmethod
+    def forward(ctx, feature_map, rois, spatial_scale, output_size):
+        bins, rows, cols, chunk = _exact_plan(feature_map, rois, spatial_scale, output_size)
+        fm_pad = _pad_neg_inf(feature_map, 1)
+        outs = []
+        for s in range(0, rois.shape[1], chunk):
+            pooled = _exact_chunk(fm_pad, tuple(t[:, s : s + chunk] for t in bins), rows, cols)[-1]
+            outs.append(torch.where(torch.isfinite(pooled), pooled, 0.0))
+        ctx.save_for_backward(feature_map, *bins)
+        ctx.plan = (rows, cols, chunk)
+        return torch.cat(outs, dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        fm, *bins = ctx.saved_tensors
+        rows, cols, chunk = ctx.plan
+        return roi_pool_exact_bwd(fm, tuple(bins), g, rows, cols, chunk), None, None, None
+
+
+def roi_pool_exact_bwd(fm: torch.Tensor, bins, g: torch.Tensor, rows: int, cols: int, chunk: int) -> torch.Tensor:
+    """Map cotangent of exact RoIPool: (B, H, W, C) in the map's type.
+
+    The JAX op's VJP of its two masked maxes: a bin's cotangent (0 where the
+    pooled value was not finite) is split evenly among the row maxima of its
+    columns that equal the bin's max; each row maximum's cotangent, summed
+    over the bins that hold its column, is split evenly among the cells of
+    its rows that equal it; each cell sums its shares over RoIs and bin
+    rows. Each split is rounded to the map's type (a division of cotangents
+    of that type); each sum is carried in f32 and rounded once, as K3
+    (`roi_pool_taps_bwd`) sums. JAX on the CPU rounds every partial sum of
+    a bf16 reduction instead, so in bf16 the two differ where a sum has more
+    than two terms. On the CPU the sums run RoI after RoI, so the chunking
+    changes no bit; on a CUDA tensor they are atomic adds in no fixed order.
+    Shares of the -inf padding slots land in a padding row and column that
+    are dropped.
+    """
+    bsz, h, w, c = fm.shape
+    dt = fm.dtype
+    fm_pad = _pad_neg_inf(fm, 1)
+    gfm = torch.zeros((bsz * (h + 1), w, c), dtype=torch.float32, device=fm.device)
+    base = (torch.arange(bsz, device=fm.device) * (h + 1))[:, None, None, None]
+    for s in range(0, g.shape[1], chunk):
+        xr, r_idx, rowmax, xc, c_idx, pooled = _exact_chunk(fm_pad, tuple(t[:, s : s + chunk] for t in bins), rows, cols)
+        gg = torch.where(torch.isfinite(pooled), g[:, s : s + chunk].float(), 0.0)
+        # Column stage: each bin's cotangent over its tied row maxima, summed
+        # for each row maximum over the bins that hold its column.
+        tied = xc == pooled[..., None, :]  # (B, n, out_i, out_j, cols, C)
+        share = _round_to(gg / tied.sum(dim=4), dt)
+        n, k = c_idx.shape[1], c_idx.shape[2]
+        growmax = torch.zeros((bsz, n, k, w + 1, c), dtype=torch.float32, device=fm.device)
+        index = c_idx.reshape(bsz, n, 1, k * cols, 1).expand(-1, -1, k, -1, c)
+        growmax.scatter_add_(3, index, (tied * share[..., None, :]).reshape(bsz, n, k, k * cols, c))
+        growmax = _round_to(growmax[:, :, :, :w], dt)
+        # Row stage: each row maximum's cotangent over its tied cells.
+        tied = xr == rowmax[:, :, :, None]  # (B, n, out, rows, W, C)
+        share = _round_to(growmax / tied.sum(dim=3), dt)
+        gfm.index_add_(0, (base + r_idx).reshape(-1), (tied * share[:, :, :, None]).reshape(-1, w, c))
+    return gfm.view(bsz, h + 1, w, c)[:, :h].to(dt)
+
+
+def roi_pool_exact(
+    feature_map: torch.Tensor,
+    rois: torch.Tensor,
+    spatial_scale: float = 1.0 / 16.0,
+    output_size: int = OUTPUT_SIZE,
+) -> torch.Tensor:
+    """Exact torchvision RoIPool, the JAX package's `ops/roi.roi_pool_exact`:
+    (H, W, C) map and (P, 4) boxes -> (P, out, out, C), or batched, (B, H, W,
+    C) and (B, P, 4) -> (B, P, out, out, C), in the map's type (a max never
+    rounds).
+
+    Each box's bins come from `exact_bins`; each bin takes the max over its
+    cells, and an empty bin, or any non-finite result, gives 0. No Pallas
+    kernel sits behind it: the same PyTorch ops run on the tensor's device.
+    Instead of JAX's (P, out, H, W, C) masked tensor, each chunk of RoIs (as
+    many as `_exact_plan` allows) gathers its bins' rows, as many as the widest bin's, the slots past a bin's end
+    reading an appended -inf row; then its bins' columns of the row maxima
+    the same way. Differentiable with
+    respect to the map (`RoIPoolExact`); boxes are constants.
+    """
+    single = feature_map.dim() == 3
+    if single:
+        feature_map, rois = feature_map[None], rois[None]
+    if feature_map.dim() != 4 or rois.dim() != 3 or rois.shape[-1] != 4 or rois.shape[0] != feature_map.shape[0]:
+        raise ValueError(f"feature_map {tuple(feature_map.shape)} / rois {tuple(rois.shape)}")
+    if feature_map.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"feature_map must be float32 or bfloat16, got {feature_map.dtype}")
+    if rois.device != feature_map.device:
+        raise ValueError(f"feature_map on {feature_map.device}, rois on {rois.device}")
+    out = RoIPoolExact.apply(feature_map, rois.detach(), float(spatial_scale), int(output_size))
+    return out[0] if single else out

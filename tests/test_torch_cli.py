@@ -134,7 +134,6 @@ def test_cli_dump_anchors_renders_deferred_voc(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--custom-roi-pool"], "A14"),
     (["--memory-stats"], "A15"),
     (["--debug-nans"], "A15"),
     (["--profile-dir", "prof"], "A15"),

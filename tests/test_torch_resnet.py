@@ -61,7 +61,9 @@ from fasterrcnn_torch.utils.weights import _flatten, from_jax_params, to_jax_par
 from chip_smoke import torchvision_resnet_state
 from tests.test_torch_predict import CANVAS_H, CANVAS_W, synthetic_images, tiny_config
 from tests.test_torch_roi import jax_positions
-from tests.test_torch_train import B, G, flat_labels, jax_batch, jax_draws, numpy_batch, rel_norm, torch_batch
+from tests.test_torch_train import (
+    B, G, every_box_config, flat_labels, jax_batch, jax_draws, numpy_batch, rel_norm, small_image_batch, torch_batch,
+)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -409,3 +411,91 @@ def test_jax_msgpack_of_a_resnet_loads_in_the_port(models, tmp_path):
     for key, value in loaded.items():
         assert torch.equal(again[key], value), key
     os.remove(own)
+
+
+def test_three_train_all_steps_with_the_resnet101_proxy_optimizer_match_jax():
+    """Three steps of ResNet-50 in from-scratch mode with the ResNet-101
+    proxy's optimizer (`fasterrcnn_torch/scripts/prodshape_proxy.py`'s
+    recipe: Adam, learning rate 1e-3, warmup then cosine decay, the CLI's
+    weight decay 5e-4, which the "decayed" group applies to the frozen-BN
+    scales too), on JAX's draws, with every anchor and proposal trained
+    (`every_box_config`).
+
+    The whole steps: the port's losses within 1e-3 relative of JAX's at each
+    step. The optimizer: on JAX's own trajectory, fed JAX's gradients, the
+    port's new values of each tensor equal optax's up to one f32 step each
+    (the rounding of p + update), and the excess over that step is within
+    2e-5 of the update in norm: optax evaluates Adam's bias correction
+    1 - 0.999^t in f32, torch.optim in double, which scales every update of
+    step t = 2 by 1 - 9.98e-6 (measured, every tensor alike).
+    (The whole steps' updates are not compared tensor by tensor: a bias
+    whose first non-zero gradient comes at step 3, behind a bn3 scale that
+    starts at 0, has components near Adam's eps of 1e-8, where the two
+    packages' last-bit gradient differences move the update by up to 2.5x;
+    a 2e-3 bound holds for every other tensor.)"""
+    train_cfg = dict(optimizer="adam", learning_rate=1e-3, weight_decay=5e-4, lr_schedule="cosine",
+                     warmup_steps=1, total_steps=4)
+    cfg = dataclasses.replace(every_box_config(jax_config), backbone="resnet50", train_all=True)
+    jax_model = jax_frcnn.FasterRCNN(cfg=cfg)
+    params = jax_frcnn.init_params(jax_model, CANVAS_H, CANVAS_W, seed=0)
+    grid = jax_frcnn.anchor_grid_for(cfg, CANVAS_H, CANVAS_W)
+    batches = [small_image_batch(10 + i) for i in range(3)]
+    rngs = [jax.random.key(20 + i) for i in range(3)]
+    tx, jax_labels = jax_engine.make_optimizer(cfg, jax_config.TrainConfig(**train_cfg), params)
+    value_and_grad = jax.jit(jax.value_and_grad(
+        lambda p, b, r: jax_frcnn.compute_losses(jax_model, p, b, r, cfg, grid), has_aux=True))
+    n_props = cfg.rpn.post_nms_train + G
+
+    def port_and_optimizer():
+        port = torch_frcnn.FasterRCNN(dataclasses.replace(every_box_config(torch_config), backbone="resnet50",
+                                                          train_all=True))
+        port.load_state_dict(from_jax_params(params))
+        return port, make_optimizer(port.cfg, torch_config.TrainConfig(**train_cfg), port)
+
+    port, (optimizer, labels) = port_and_optimizer()
+    assert labels == flat_labels(jax_labels) and "frozen" not in labels.values()
+    assert labels["feature_extractor.layer2.block0.bn3.scale"] == "decayed"
+    step = torch_frcnn.make_train_step(port, optimizer, CANVAS_H, CANVAS_W)
+    forced, (forced_opt, _) = port_and_optimizer()
+    p, state = params, tx.init(params)
+    for nb, rng in zip(batches, rngs):
+        draws = jax_draws(rng, B, grid.total, n_props)
+        # JAX's step, as its train step takes it, and its losses.
+        (_, want), grads = value_and_grad(p, jax_batch(nb), rng)
+        updates, state = tx.update(grads, state, p)
+        p_next = jax.tree.map(lambda a, u: a + u, p, updates)
+        # The port's own step from its own weights.
+        got = step(torch_batch(nb), draws=draws)
+        np.testing.assert_allclose(torch.stack(list(got)).numpy(), np.stack([np.asarray(v) for v in want]), rtol=1e-3)
+        # The port's optimizer on JAX's weights and gradients.
+        forced.load_state_dict(from_jax_params(jax.tree.map(np.asarray, p)))
+        jax_grads = from_jax_params(jax.tree.map(np.asarray, grads))
+        before = {n: t.detach().clone() for n, t in forced.named_parameters()}
+        for name, t in forced.named_parameters():
+            t.grad = jax_grads[name].clone()
+        forced_opt.step()
+        want_params = from_jax_params(jax.tree.map(np.asarray, p_next))
+        for name, t in forced.named_parameters():
+            new, want_new = t.detach().numpy(), want_params[name].numpy()
+            excess = np.maximum(np.abs(new - want_new) - np.spacing(np.abs(want_new)), 0.0)
+            assert np.linalg.norm(excess) <= 2e-5 * np.linalg.norm(want_new - before[name].numpy()), name
+        p = p_next
+
+
+def test_a_shallower_torchvision_resnet_loads_in_part_in_jax_and_raises_in_the_port(tmp_path):
+    """A torchvision ResNet-50 file given to a ResNet-101 model: JAX's
+    `import_stage` loads layer3's 6 bottlenecks into blocks 0-5, leaves
+    blocks 6-22 as they were and prints "Loaded"; the port refuses the file
+    (layer3 holds 6 bottlenecks, the model 23). The port keeps its refusal."""
+    state = torchvision_resnet_state(np.random.default_rng(13), "resnet50")
+    path = str(tmp_path / "resnet50.pth")
+    torch.save(state, path)
+    zeros = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), abstract_params("resnet101"))
+    loaded = jax_ckpt.load(zeros, path)
+    layer3 = loaded["feature_extractor"]["layer3"]
+    np.testing.assert_array_equal(layer3["block5"]["conv1"]["kernel"],
+                                  state["layer3.5.conv1.weight"].numpy().transpose(2, 3, 1, 0))
+    assert all(not np.asarray(layer3[f"block{i}"]["conv1"]["kernel"]).any() for i in range(6, 23))
+    port = torch_frcnn.FasterRCNN(resnet_config(torch_config, "resnet101"))
+    with pytest.raises(ValueError, match="layer3 holds 6 bottlenecks, the model 23"):
+        checkpoint.load(port, path)
