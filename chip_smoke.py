@@ -81,6 +81,22 @@ result line):
   6o. overfit proxy: `fasterrcnn_torch.scripts.overfit_sanity` at its recipe
      (150 epochs on 4 synthetic images) for VGG-16 and ResNet-50, each with
      the crop and with exact RoIPool; each must reach 90% train mAP.
+  6e. the train loop as the JAX package runs it (`Engine.train_epoch`:
+     packed steps and K-step blocks, each a CUDA graph): graph against
+     eager on the every-box tiny config (`scripts/reference_train.
+     graph_against_eager`: step 0 identical; the teacher-forced programs'
+     later losses and parameters within twice the eager replicas' largest
+     gap; learning rates and generator offsets those of the eager run; the
+     trajectories' later losses and final parameters printed beside the
+     eager runs' spread); VGG-16 and ResNet-101 (from scratch)
+     at full width, f32 and bf16, K=8, B=4, 5 blocks of 600x800 samples
+     held in memory, a cold and a warm epoch: epoch img/s beside eager
+     train_step img/s, `last_epoch_trace`, a replayed block's device idle
+     share, K1-K3 counted in each graph with its replays, losses finite and
+     falling; the CLI's --memory-stats --profile-dir --debug-nans at the
+     tiny config (the JAX CLI's three lines, a trace naming K1-K3); and
+     `scripts/bench.py` once (BENCH_TRIALS=1, BENCH_EPOCH_TRIALS=1), one
+     JSON line of finite rates.
   5b. the fused RoI op (K4's path): `roi_pool_fused`, the public op, on
      the predict path's own f32 feature map and RPN proposals; it must
      launch K4 and equal `roi_pool_fused_plain` and `roi_pool_taps` there,
@@ -108,7 +124,9 @@ result line):
      --load-from the saved weights: the mAP in [0, 100], K1 launched, K2
      not. Then
      Engine.evaluate's throughput over the test split, fed by the reader
-     (JPEG decode in the prefetch thread) and fed decoded samples.
+     (JPEG decode in the prefetch thread) and fed decoded samples; which
+     decoder the reader used (the native one wherever libjpeg links, else
+     PIL).
   7. timing (VGG-16 and ResNet-101, each after its paths): Engine.predict
      and Engine.train_step on the host's batch, ms
      per batch and img/s (f32 with TF32 off, f32 with cuDNN TF32 on, bf16),
@@ -1122,6 +1140,188 @@ def phase_overfit(counters, card, epochs=150):
     return results, launches
 
 
+def phase_graph_vs_eager(card):
+    """Phase 6e, first part: the captured train programs against eager
+    steps (`scripts/reference_train.graph_against_eager`: the every-box
+    tiny config, f32, TF32 off; step 0 of the two `train_epoch`
+    trajectories, the teacher-forced programs, and the packed program's
+    learning rates and generator offsets against the eager run's). Every
+    check must hold."""
+    from fasterrcnn_torch.scripts.reference_train import graph_against_eager
+
+    out = graph_against_eager()
+    print(f"graph against eager: {json.dumps(out)} [{card}]", flush=True)
+    check(not out["failures"], f"graph against eager: {out['failures']}")
+    return out
+
+
+def profile_block(label, step, images, aux, card):
+    """Device busy time and idle share of one replayed program (torch.profiler)."""
+    return phase_profile({label: lambda: step(images, aux)}, card, reps=1)[label]
+
+
+def phase_train_loop(counters, card, k=8, blocks=5, b=4):
+    """Phase 6e, second part: `Engine.train_epoch` at full width, VGG-16
+    (`ModelConfig()`) and ResNet-101 in from-scratch mode, f32 (TF32 off)
+    and bf16, over k * blocks batches of b synthetic 600x800 samples (the
+    608x800 canvas), held in memory: a cold epoch (the captures), then a
+    warm one. Each prints the warm epoch's img/s beside eager
+    `Engine.train_step` img/s on one of its batches, `last_epoch_trace`, the
+    device idle share of one replayed k-step block, and K1-K3's launches:
+    counted at capture and added at each replay. Losses must be finite and
+    fall from the first block to the last."""
+    import dataclasses
+
+    import torch
+    from fasterrcnn_torch.config import ModelConfig
+    from fasterrcnn_torch.data.pipeline import make_host_batch
+    from fasterrcnn_torch.data.synthetic import SyntheticDataset
+    from fasterrcnn_torch.engine import Engine
+    from fasterrcnn_torch.models.faster_rcnn import pack_aux
+    from fasterrcnn_torch.scripts.reference_train import StepRows
+
+    os.environ["FRCNN_SCAN_STEPS"] = str(k)
+    samples = list(SyntheticDataset(num_samples=k * blocks * b, seed=5))
+    n = len(samples)
+    results, launches = {}, {}
+    for name, cfg in (("vgg16", ModelConfig()), ("resnet101", ModelConfig(backbone="resnet101", train_all=True))):
+        for dtype in ("float32", "bfloat16"):
+            label = f"train loop {name} {dtype}"
+            engine = Engine(dataclasses.replace(cfg, compute_dtype=dtype), seed=0)
+            for fn in counters:
+                fn.launches = 0
+            cold, warm = StepRows(), StepRows()
+            t0 = time.perf_counter()
+            engine.train_epoch(samples, b, stats=cold)
+            cold_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            engine.train_epoch(samples, b, stats=warm)
+            warm_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            tag = f"train_loop_{name}_{'f32' if dtype == 'float32' else 'bf16'}"
+            launches[tag] = path_launches(counters, ("nms_keep_mask", "roi_pool_taps", "roi_pool_taps_bwd"), label)
+            scan = engine.scan_step_for((608, 800), k).captured_step
+            check(len(scan.graphs) == 1 and scan.replays == 2 * blocks,
+                  f"{label}: {scan.replays} replays of the {k}-step graph, expected {2 * blocks}")
+            rows = np.array(cold.rows + warm.rows)
+            totals = rows.sum(axis=1)
+            check(rows.shape == (2 * n // b, 4) and np.isfinite(rows).all(), f"{label}: loss rows {rows.shape}")
+            first, last = float(totals[:k].mean()), float(totals[-k:].mean())
+            check(last < first, f"{label}: the loss did not fall (first block {first}, last {last})")
+            trace = dict(engine.last_epoch_trace)
+            hb = make_host_batch(samples[:b], (608, 800), cfg.max_gt_boxes)
+            for _ in range(2):
+                engine.train_step(hb)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(8):
+                t0 = time.perf_counter()
+                engine.train_step(hb)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            step_ips = b / statistics.median(times)
+            block = [make_host_batch(samples[i * b:(i + 1) * b], (608, 800), cfg.max_gt_boxes) for i in range(k)]
+            images = torch.as_tensor(np.stack([h.images for h in block]), device="cuda")
+            aux = torch.as_tensor(np.stack([pack_aux(h, i) for i, h in enumerate(block)]), device="cuda")
+            prof = profile_block(f"{label} {k}-step replay", engine.scan_step_for((608, 800), k), images, aux, card)
+            results[tag] = {
+                "epoch_images_per_sec": n / warm_s, "epoch_images_per_sec_cold": n / cold_s,
+                "step_images_per_sec": step_ips, "epoch_vs_step": n / warm_s / step_ips,
+                "last_epoch_trace": trace, "block_device_idle_share": prof["device_idle_share"],
+                "block_device_busy_ms": prof["device_busy_ms_per_call"], "block_wall_ms": prof["wall_ms_per_call_profiler_on"],
+                "capture_launches": dict(scan.launches), "replays": scan.replays,
+                "first_block_loss": first, "last_block_loss": last,
+            }
+            print(f"{label}: epoch {n / warm_s!r} img/s warm ({n / cold_s!r} cold, captures included), eager "
+                  f"train_step {step_ips!r} img/s, epoch_vs_step {n / warm_s / step_ips!r}; trace {trace}; "
+                  f"{k}-step replay idle share {prof['device_idle_share']!r}; K1-K3 in the graph {scan.launches}, "
+                  f"{scan.replays} replays; mean loss first block {first!r}, last {last!r} [{card}]", flush=True)
+            del engine, scan
+            torch.cuda.empty_cache()
+    os.environ.pop("FRCNN_SCAN_STEPS")
+    print(json.dumps({"train_loop": results, "card": card}), flush=True)
+    return results, launches
+
+
+def libjpeg_present() -> bool:
+    """Whether g++ compiles and links a program against libjpeg here."""
+    import tempfile
+
+    src = "#include <cstddef>\n#include <cstdio>\n#include <jpeglib.h>\nint main() { jpeg_decompress_struct c; (void)c; }\n"
+    with tempfile.TemporaryDirectory() as d:
+        try:
+            r = subprocess.run(["g++", "-x", "c++", "-", "-ljpeg", "-o", os.path.join(d, "a.out")], input=src,
+                               text=True, capture_output=True, timeout=120)
+        except OSError:
+            return False
+    return r.returncode == 0
+
+
+def phase_cli_diagnostics(counters, card):
+    """Phase 6e: `python -m fasterrcnn_torch --train --tiny --synthetic 8
+    --memory-stats --profile-dir <tmp> --debug-nans`: the JAX CLI's three
+    lines must print, the loop must say it runs uncaptured, and the trace
+    must name K1-K3's kernels (the debug run's steps launch them eagerly)."""
+    import tempfile
+
+    import torch
+
+    for fn in counters:
+        fn.launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prof_") as tmp:
+        prof = os.path.join(tmp, "prof")
+        out = run_cli(["--train", "--tiny", "--synthetic", "8", "--batch-size", "4", "--eval-batch-size", "4",
+                       "--periodic-eval-samples", "2", "--memory-stats", "--profile-dir", prof, "--debug-nans"])
+        torch.cuda.synchronize()
+        trace = open(os.path.join(prof, "trace.json")).read()
+    lines = [line for line in out.splitlines()
+             if line.startswith(("Device memory     :", "Train step memory :", "Wrote profiler trace to",
+                                 "Train loop        :"))]
+    for line in lines:
+        print(f"  cli: {line}", flush=True)
+    for prefix in ("Device memory     : cuda:0 in_use=", "Train step memory : canvas=(128, 160) temp=",
+                   f"Wrote profiler trace to {prof}", "Train loop        : uncaptured"):
+        check(any(line.startswith(prefix) for line in lines), f"CLI diagnostics: no line starting {prefix!r}")
+    kernels = {name: trace.count(name) for name in (
+        "nms_iou_mask_kernel", "nms_scan_kernel", "roi_pool_taps_kernel", "roi_pool_taps_bwd_kernel")}
+    print(f"CLI diagnostics: the trace ({len(trace)} bytes) names {kernels} [{card}]", flush=True)
+    check(all(kernels.values()), f"the profiler trace does not name every kernel of K1-K3: {kernels}")
+    return path_launches(counters, ("nms_keep_mask", "roi_pool_taps", "roi_pool_taps_bwd"), "CLI diagnostics")
+
+
+def phase_bench(counters, card):
+    """Phase 6e: `fasterrcnn_torch/scripts/bench.py` once, BENCH_TRIALS=1
+    BENCH_EPOCH_TRIALS=1: one JSON line with finite, positive rates."""
+    from fasterrcnn_torch.scripts import bench
+
+    for fn in counters:
+        fn.launches = 0
+    env = {"BENCH_TRIALS": "1", "BENCH_EPOCH_TRIALS": "1"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            bench.main()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    lines = buf.getvalue().strip().splitlines()
+    check(len(lines) == 1, f"bench printed {len(lines)} lines, expected one")
+    record = json.loads(lines[0])
+    print(f"bench ({time.perf_counter() - t0:.1f} s): {lines[0]}", flush=True)
+    rates = ("value", "train_images_per_sec", "epoch_images_per_sec", "epoch_images_per_sec_cold", "epoch_vs_step",
+             "resnet101_images_per_sec", "resnet101_train_images_per_sec")
+    check(all(isinstance(record.get(k), (int, float)) and np.isfinite(record[k]) and record[k] > 0 for k in rates),
+          f"bench: a rate is missing or not finite: { {k: record.get(k) for k in rates} }")
+    launches = path_launches(counters, ("nms_keep_mask", "roi_pool_taps", "roi_pool_taps_bwd"), "bench")
+    return record, launches
+
+
 def run_cli(args):
     """`python -m fasterrcnn_torch` in this process (`__main__.main(args)`),
     its standard output captured; the lines a user reads for the result are
@@ -1251,16 +1451,23 @@ def eval_throughput(engine, root, card, split_name, batch_size=4, reps=3):
     for each (it meets every canvas the split holds)."""
     import torch
     from fasterrcnn_torch.config import select_canvas
-    from fasterrcnn_torch.data import voc
+    from fasterrcnn_torch.data import native_loader, voc
+
+    native, libjpeg = native_loader.available(), libjpeg_present()
+    print(f"the reader's JPEG decoder: {'native (data/native_loader, libjpeg)' if native else 'PIL'}; "
+          f"libjpeg on this machine: {libjpeg}", flush=True)
+    check(native or not libjpeg, "libjpeg is present but the native reader did not build")
 
     def split():
         return voc.Dataset(split_name, dir=root, augment=False, shuffle=False, cache=False)
 
     t0 = time.perf_counter()
     decoded = list(split())
+    for sample in decoded:  # deferred samples (the native reader's batch decode) decode here
+        sample.materialize()
     read_s = time.perf_counter() - t0
     n = len(decoded)
-    out = {"images": n, "batch_size": batch_size, "canvases": dict(collections.Counter(
+    out = {"images": n, "batch_size": batch_size, "decoder": "native" if native else "PIL", "canvases": dict(collections.Counter(
         "x".join(map(str, select_canvas(*s.image_hw))) for s in decoded)),
         "reader_alone_ms_per_image": 1e3 * read_s / n}
     print(f"the reader alone (parse, JPEG decode, resize; one thread, no device work): {n} images in "
@@ -1555,6 +1762,13 @@ def main() -> None:
     _, exact_launches = phase_exact_pool(dev, counters, card, images, image_hw, crop)
     _, overfit_launches = phase_overfit(counters, card)
 
+    # Phase 6e: the train loop as the JAX package runs it (captured programs),
+    # its diagnostics through the CLI, and the bench entry.
+    phase_graph_vs_eager(card)
+    loop, loop_launches = phase_train_loop(counters, card)
+    cli_diag_launches = phase_cli_diagnostics(counters, card)
+    _, bench_launches = phase_bench(counters, card)
+
     _, conv_launches = phase_conv_ab(counters, card)
     cli_train_launches, eval_launches, cli_resnet_launches, cli_exact_launches, _ = phase_eval_cli(counters, card)
 
@@ -1563,10 +1777,17 @@ def main() -> None:
              "conv_ab": conv_launches, "cli_train": cli_train_launches, "eval": eval_launches,
              "resnet101_predict": r_launches, "resnet101_train": r_train_launches, **other_launches,
              "cli_resnet101_eval": cli_resnet_launches, **exact_launches, **overfit_launches,
-             "cli_exact_pool_eval": cli_exact_launches, "parity": parity_launches}
+             "cli_exact_pool_eval": cli_exact_launches, **loop_launches, "cli_diagnostics": cli_diag_launches,
+             "bench": bench_launches, "parity": parity_launches}
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}
+
+    def in_graphs(name):
+        """Launches one replay of each train loop path's K-step graph holds,
+        and its replays (the path's count above is their product, plus the
+        warm-up's eager launches and the residues')."""
+        return {tag: {"per_replay": r["capture_launches"][name], "replays": r["replays"]} for tag, r in loop.items()}
 
     kernels = [
         {
@@ -1579,6 +1800,7 @@ def main() -> None:
             "library_ms": None,
             "shape": parity["rpn"]["shape"],
             "launches_by_path": by_path("nms_keep_mask"),
+            "train_loop_graphs": in_graphs("nms_keep_mask"),
             **{label: parity[label] for label in ("per_class", "train", "train_scene")},
         },
         {
@@ -1591,6 +1813,7 @@ def main() -> None:
             "library_ms": None,
             "shape": parity["roi_f32"]["shape"],
             "launches_by_path": by_path("roi_pool_taps"),
+            "train_loop_graphs": in_graphs("roi_pool_taps"),
             "ldg128_instructions": vector_loads["roi_pool_taps"],
             "bf16": parity["roi_bf16"],
             **{k: v for k, v in parity.items() if k.endswith(("_roi_pool_taps_f32", "_roi_pool_taps_bf16"))},
@@ -1606,6 +1829,7 @@ def main() -> None:
             "library_ms": None,
             "shape": parity["roi_bwd_f32"]["shape"],
             "launches_by_path": by_path("roi_pool_taps_bwd"),
+            "train_loop_graphs": in_graphs("roi_pool_taps_bwd"),
             "vector_reduction_instructions": vector_reductions,
             **{k: parity[k] for k in ("roi_bwd_bf16", "roi_bwd_f32_relu", "roi_bwd_bf16_relu")},
             **{k: v for k, v in parity.items() if k.endswith(("_roi_pool_taps_bwd_f32", "_roi_pool_taps_bwd_bf16"))},

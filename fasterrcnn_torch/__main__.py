@@ -7,14 +7,18 @@ defaults: the procedures --train / --eval / --predict / --predict-to-file /
 port's own: --device (default cuda; "cpu" asks for the CPU). There is no
 fallback: --device cuda without a card raises.
 
-Flags whose features are not ported yet raise NotImplementedError naming
-their ROADMAP item: --memory-stats, --debug-nans and --profile-dir (A15),
---num-devices and --tp above 1 (A16).
+The diagnostics are the JAX CLI's: --memory-stats prints the device
+memory and each train step's memory after the first epoch, --debug-nans
+raises at the first NaN (autograd anomaly mode; the train loop then runs
+uncaptured, and says so), --profile-dir writes a torch.profiler trace of the
+first epoch's steps. --num-devices and --tp above 1 raise
+NotImplementedError naming their ROADMAP item (A16).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 
@@ -114,14 +118,14 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Smoke-test mode: small synthetic images and "
                              "reduced proposal caps")
     parser.add_argument("--memory-stats", action="store_true",
-                        help="Print device memory after the first epoch "
-                             "(not ported yet, ROADMAP A15)")
+                        help="Print device memory and the train step's "
+                             "memory after the first epoch")
     parser.add_argument("--debug-nans", action="store_true",
-                        help="Raise at the first NaN-producing op (not "
-                             "ported yet, ROADMAP A15)")
+                        help="Raise at the first NaN-producing op (autograd "
+                             "anomaly mode; the train loop runs uncaptured)")
     parser.add_argument("--profile-dir", metavar="dir",
-                        help="Capture a profiler trace of training steps "
-                             "(not ported yet, ROADMAP A15)")
+                        help="Write a torch.profiler trace of the first "
+                             "epoch's training steps into this directory")
     parser.add_argument("--num-devices", metavar="n", type=int, default=0,
                         help="Shard work over the first n devices (0 = single "
                              "device; above 1 not ported yet, ROADMAP A16)")
@@ -136,9 +140,6 @@ def build_parser() -> argparse.ArgumentParser:
 def check_ported(options) -> None:
     """Raise NotImplementedError for a flag whose feature is not ported."""
     waiting = [
-        (options.memory_stats, "--memory-stats", "A15"),
-        (options.debug_nans, "--debug-nans", "A15"),
-        (options.profile_dir is not None, "--profile-dir", "A15"),
         (options.num_devices > 1, "--num-devices > 1", "A16"),
         (options.tp > 1, "--tp > 1", "A16"),
     ]
@@ -304,37 +305,59 @@ def train(engine, options):
                 engine.set_params(state)
                 start_epoch = last_epoch + 1
 
-    for epoch in range(start_epoch, 1 + options.epochs):
-        print("Epoch %d/%d" % (epoch, options.epochs))
-        stats = engine.train_epoch(train_data, options.batch_size, progress=True)
-        if epoch == start_epoch and hasattr(train_data, "cache_nbytes"):
-            nb = train_data.cache_nbytes()
-            if nb:
-                print(
-                    "Image cache       : %.1f MiB (%d images, one unflipped "
-                    "array each; flips are views)"
-                    % (nb / 2**20, len(train_data._cache))
-                )
-        mean_ap = engine.evaluate(
-            eval_data,
-            batch_size=options.eval_batch_size,
-            num_samples=options.periodic_eval_samples,
-        )
-        if ckpt_mgr is not None:
-            ckpt_mgr.save(epoch, engine.model, mean_ap)
-        if csv:
-            log_items = {
-                "epoch": epoch,
-                "learning_rate": options.learning_rate,
-                "momentum": options.momentum,
-                "weight_decay": options.weight_decay,
-                "dropout": options.dropout,
-                "mAP": mean_ap,
-            }
-            log_items.update(stats.get_progbar_postfix())
-            csv.log(log_items)
-        if best:
-            best.on_epoch_end(engine.model, epoch, mean_ap)
+    from fasterrcnn_torch.utils import profiling as prof_lib
+
+    if engine.device.type == "cuda" and (options.debug_nans or options.custom_roi_pool):
+        why = ("--debug-nans: autograd anomaly mode reads values on the host" if options.debug_nans
+               else "--custom-roi-pool: exact RoIPool sizes its gathers from the data")
+        print("Train loop        : uncaptured, eager steps (%s)" % why)
+    # The trace covers the first epoch's training steps, as the JAX CLI's.
+    profiler = prof_lib.trace(options.profile_dir) if options.profile_dir else None
+    if profiler is not None:
+        profiler.__enter__()
+    guard = prof_lib.nan_guard() if options.debug_nans else contextlib.nullcontext()
+    with guard:
+        for epoch in range(start_epoch, 1 + options.epochs):
+            print("Epoch %d/%d" % (epoch, options.epochs))
+            try:
+                stats = engine.train_epoch(train_data, options.batch_size, progress=True)
+            finally:
+                if profiler is not None:
+                    profiler.__exit__(None, None, None)
+                    profiler = None
+                    print(f"Wrote profiler trace to {options.profile_dir}")
+            if epoch == start_epoch and hasattr(train_data, "cache_nbytes"):
+                nb = train_data.cache_nbytes()
+                if nb:
+                    print(
+                        "Image cache       : %.1f MiB (%d images, one unflipped "
+                        "array each; flips are views)"
+                        % (nb / 2**20, len(train_data._cache))
+                    )
+            if epoch == start_epoch and options.memory_stats:
+                print_memory_stats(engine, options.batch_size)
+            mean_ap = engine.evaluate(
+                eval_data,
+                batch_size=options.eval_batch_size,
+                num_samples=options.periodic_eval_samples,
+            )
+            if ckpt_mgr is not None:
+                ckpt_mgr.save(epoch, engine.model, mean_ap)
+            if csv:
+                log_items = {
+                    "epoch": epoch,
+                    "learning_rate": options.learning_rate,
+                    "momentum": options.momentum,
+                    "weight_decay": options.weight_decay,
+                    "dropout": options.dropout,
+                    "mAP": mean_ap,
+                }
+                log_items.update(stats.get_progbar_postfix())
+                csv.log(log_items)
+            if best:
+                best.on_epoch_end(engine.model, epoch, mean_ap)
+    if profiler is not None:  # no epoch ran
+        profiler.__exit__(None, None, None)
     if options.save_to:
         engine.save_weights(options.save_to)
     if best:
@@ -350,6 +373,30 @@ def train(engine, options):
         print_average_precisions=True,
         plot=options.plot,
     )
+
+
+def print_memory_stats(engine, batch_size):
+    """--memory-stats: the JAX CLI's lines, after the first epoch. A value
+    the device does not report (a CPU allocator keeps no peak) prints as
+    "not measured"."""
+    from fasterrcnn_torch.utils import profiling as prof_lib
+
+    for dev, ms in prof_lib.device_memory_summary(engine.device).items():
+        print(
+            "Device memory     : %s in_use=%.1f MiB peak=%.1f MiB "
+            "limit=%.1f MiB"
+            % (dev, ms["bytes_in_use_mb"], ms["peak_bytes_in_use_mb"],
+               ms["bytes_limit_mb"])
+        )
+    for canvas in engine.compiled_canvases():
+        mem = engine.train_step_memory_analysis(canvas, batch_size)
+        temp = "not measured" if mem["temp_mb"] is None else "%.1f MiB" % mem["temp_mb"]
+        print(
+            "Train step memory : canvas=%s temp=%s "
+            "args=%.1f MiB out=%.1f MiB code=%.1f MiB"
+            % (canvas, temp, mem["argument_mb"],
+               mem["output_mb"], mem["generated_code_mb"])
+        )
 
 
 def predict_one(engine, url, show_image, output_path):

@@ -8,6 +8,7 @@ reordering, scaling and standardization run on the device
 from __future__ import annotations
 
 import dataclasses
+import os
 from enum import Enum
 from typing import Optional, Tuple
 
@@ -76,9 +77,15 @@ def load_image(
     min_dimension_pixels: Optional[int] = 600,
     horizontal_flip: bool = False,
     max_dimension_pixels: Optional[int] = None,
+    use_native: bool = True,
 ):
-    """Load an image with PIL and resize it; no normalization. `path` is a
-    file path, a file object or an http(s) URL (fetched with urllib).
+    """Load an image and resize it; no normalization. `path` is a file path,
+    a file object or an http(s) URL (fetched with urllib).
+
+    A local JPEG file is decoded by the native reader (`data/native_loader`:
+    libjpeg and its own bilinear resize) when it is available and
+    use_native is set, as the JAX package's reader does; everything else,
+    and a JPEG the native reader refuses, by PIL.
 
     Returns:
       (image_u8, pil_image, scale_factor, original_shape) where image_u8 is
@@ -91,6 +98,16 @@ def load_image(
 
         with urllib.request.urlopen(path) as resp:
             path = io.BytesIO(resp.read())
+    if (
+        use_native
+        and min_dimension_pixels
+        and isinstance(path, str)
+        and os.path.isfile(path)
+        and path.lower().endswith((".jpg", ".jpeg"))
+    ):
+        result = _load_image_native(path, min_dimension_pixels, horizontal_flip, max_dimension_pixels)
+        if result is not None:
+            return result
     image = Image.open(path).convert("RGB")
     original_width, original_height = image.width, image.height
     if horizontal_flip:
@@ -109,3 +126,26 @@ def load_image(
         scale_factor = 1.0
     image_u8 = np.asarray(image, dtype=np.uint8)
     return image_u8, image, scale_factor, (3, original_height, original_width)
+
+
+# Largest aspect ratio the native scratch canvas covers at min-side 600.
+_NATIVE_SCRATCH_SIDE = 1664
+
+
+def _load_image_native(path: str, min_dim: int, flip: bool, max_dim=None):
+    """JPEG decode+resize via the native reader; None -> caller uses PIL."""
+    from fasterrcnn_torch.data import native_loader
+
+    if not native_loader.available():
+        return None
+    try:
+        with open(path, "rb") as f:
+            jpeg = f.read()
+        scratch = np.empty((_NATIVE_SCRATCH_SIDE, _NATIVE_SCRATCH_SIDE, 3), np.uint8)
+        rh, rw, oh, ow = native_loader.decode_resize_into(jpeg, scratch, min_dim, flip, max_side=max_dim or 0)
+    except (OSError, ValueError):
+        return None
+    image_u8 = np.ascontiguousarray(scratch[:rh, :rw])
+    scale_factor = compute_scale_factor(ow, oh, min_dim, max_dim)
+    pil_image = Image.fromarray(image_u8)
+    return image_u8, pil_image, scale_factor, (3, oh, ow)

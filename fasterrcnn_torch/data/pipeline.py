@@ -4,9 +4,10 @@ A JAX-free copy of `fasterrcnn_tpu/data/pipeline.py`: samples are padded
 into the static canvas buckets (`config.CANVAS_BUCKETS`), batches form
 within a bucket, residue batches are padded with zero-weight blanks, and a
 background thread keeps batches ready. Deferred samples (`data/voc.
-DeferredJpeg`) are decoded with PIL straight into the padded batch, as the
-JAX package's non-native branch does; its threaded C++ decoder is not
-ported.
+DeferredJpeg`) are decoded straight into the padded batch: by the native
+reader (`data/native_loader`, threaded libjpeg) where it builds, else with
+PIL, as the JAX package does. `stage`, `upload` and `arrived` carry batches
+from the prefetch thread to the card (`Engine.train_epoch`).
 """
 
 from __future__ import annotations
@@ -14,9 +15,10 @@ from __future__ import annotations
 import queue
 import threading
 import warnings
-from typing import Iterable, Iterator, List, Optional, Tuple
+from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from fasterrcnn_torch.config import CANVAS_BUCKETS, select_canvas
 from fasterrcnn_torch.data import image as image_lib
@@ -40,30 +42,55 @@ class HostBatch:
 def _decode_deferred_into(images: np.ndarray, samples: List[Sample], idx):
     """Decode deferred samples straight into the padded batch canvas.
 
-    Samples with a cache_sink are decoded unflipped (the dataset caches one
-    variant per file) and flipped as they are written. A decoded size other
-    than the annotation's raises before anything is written.
+    One threaded native-reader call per batch (`data/native_loader`, the GIL
+    released for its whole duration) when the reader is available, else
+    PIL one sample at a time. Samples with a cache_sink are decoded
+    unflipped (the dataset caches one variant per file) and flipped as they
+    are written. A decoded size other than the annotation's raises.
     """
-    for i in idx:
-        s = samples[i]
-        arr, _, _, _ = image_lib.load_image(
-            s.filepath,
-            min_dimension_pixels=s.deferred.min_side,
-            max_dimension_pixels=s.deferred.max_side,
-            horizontal_flip=s.flip and s.deferred.cache_sink is None,
+    from fasterrcnn_torch.data import native_loader
+
+    spec = samples[idx[0]].deferred
+    if native_loader.available():
+        jpegs, flips = [], []
+        for i in idx:
+            with open(samples[i].filepath, "rb") as f:
+                jpegs.append(f.read())
+            flips.append(samples[i].flip and samples[i].deferred.cache_sink is None)
+        real_hw, _ = native_loader.decode_batch_into(
+            jpegs, images, dest_indices=idx, min_side=spec.min_side, max_side=spec.max_side, flips=flips,
         )
-        rh, rw = arr.shape[:2]
+        decoded_hw = [(int(real_hw[k, 0]), int(real_hw[k, 1])) for k in range(len(idx))]
+        arrays = [None] * len(idx)  # already in the batch
+    else:
+        decoded_hw, arrays = [], []
+        for i in idx:
+            s = samples[i]
+            arr, _, _, _ = image_lib.load_image(
+                s.filepath,
+                min_dimension_pixels=spec.min_side,
+                max_dimension_pixels=spec.max_side,
+                horizontal_flip=s.flip and s.deferred.cache_sink is None,
+                use_native=False,
+            )
+            decoded_hw.append(arr.shape[:2])
+            arrays.append(arr)
+    for k, i in enumerate(idx):
+        s = samples[i]
+        rh, rw = decoded_hw[k]
         if (rh, rw) != tuple(s.image_hw):
             raise ValueError(
                 f"{s.filepath}: decoded to {(rh, rw)} but the annotation's "
                 f"<size> element predicted {tuple(s.image_hw)}"
             )
+        if arrays[k] is not None:
+            images[i, :rh, :rw] = arrays[k]
         sink = s.deferred.cache_sink
         if sink is not None:
-            sink(arr)
+            unflipped = images[i, :rh, :rw].copy()
+            sink(unflipped)
             if s.flip:
-                arr = arr[:, ::-1]
-        images[i, :rh, :rw] = arr
+                images[i, :rh, :rw] = unflipped[:, ::-1]
         s.image_u8 = images[i, :rh, :rw]
         s.deferred = None
 
@@ -210,3 +237,45 @@ class Prefetcher:
                 raise self._error
             raise StopIteration
         return item
+
+
+def stage(arrays: Sequence[np.ndarray], pin: bool) -> torch.Tensor:
+    """`np.stack(arrays)` assembled straight into a host tensor, in
+    page-locked memory if `pin` (so that a copy to the card can run
+    asynchronously)."""
+    first = np.asarray(arrays[0])
+    dtype = torch.from_numpy(np.empty(0, first.dtype)).dtype
+    out = torch.empty((len(arrays), *first.shape), dtype=dtype, pin_memory=pin)
+    np.stack(arrays, out=out.numpy())
+    return out
+
+
+def upload(host: Sequence[torch.Tensor], device: torch.device, stream) -> Tuple[Tuple[torch.Tensor, ...], object]:
+    """Copy host tensors to `device` and return them with the event that
+    marks their arrival (None on the CPU, where nothing is copied).
+
+    On a CUDA device the copies are enqueued on `stream` with
+    `non_blocking=True` and an event is recorded after them. The consumer
+    must make its stream wait on the event and `record_stream` each tensor
+    on it (`arrived`). PyTorch's pinned-memory allocator holds each pinned
+    source until its copy has run, so the host tensors may be dropped at once.
+    """
+    if device.type != "cuda":
+        return tuple(t.to(device) for t in host), None
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        out = tuple(t.to(device, non_blocking=True) for t in host)
+        ready = torch.cuda.Event()
+        ready.record(stream)
+    return out, ready
+
+
+def arrived(tensors: Sequence[torch.Tensor], ready) -> None:
+    """Make the current stream wait for an `upload` and tie its tensors'
+    memory to that stream, so that the allocator gives it to no later
+    upload before the reads queued here have run."""
+    if ready is None:
+        return
+    current = torch.cuda.current_stream(tensors[0].device)
+    current.wait_event(ready)
+    for t in tensors:
+        t.record_stream(current)

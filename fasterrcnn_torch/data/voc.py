@@ -2,8 +2,8 @@
 pipeline carries.
 
 A JAX-free copy of `fasterrcnn_tpu/data/voc.py`: the reader parses the XML,
-decodes and resizes the JPEGs (PIL, `data/image.load_image`), flips, and
-scales the ground truth. Anchor maps and RPN targets are computed on the
+decodes and resizes the JPEGs (`data/image.load_image`: the native reader
+where it builds, else PIL), flips, and scales the ground truth. Anchor maps and RPN targets are computed on the
 device inside the train step. The same seed gives the same order and the
 same flips as the JAX package's reader.
 
@@ -17,9 +17,9 @@ Semantics kept:
   * per-epoch shuffling.
 
 `batch_decode=True` hands undecoded samples (`DeferredJpeg`) to
-`data/pipeline.make_host_batch`, which decodes them with PIL straight into
-the padded batch. The JAX package's threaded C++ decoder is not ported, so
-`batch_decode=None` means False here.
+`data/pipeline.make_host_batch`, which decodes them straight into the
+padded batch (one threaded native call a batch, or PIL). `batch_decode=None`
+(the default) means "when the native reader is available", as in JAX.
 """
 
 from __future__ import annotations
@@ -187,7 +187,11 @@ class Dataset:
         self._cache: Dict[str, np.ndarray] = {}
         # Deferred batch decode: the resized extent is known before decoding
         # from the annotation's <size> element.
-        self._batch_decode = bool(batch_decode)
+        if batch_decode is None:
+            from fasterrcnn_torch.data import native_loader
+
+            batch_decode = native_loader.available()
+        self._batch_decode = batch_decode
         self._order = list(self._filepaths)
         self._i = 0
 

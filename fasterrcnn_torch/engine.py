@@ -8,23 +8,28 @@ restarts the optimizer; `load_weights` does so from any weight file
 `utils/checkpoint.load` reads and `save_weights` writes the port's own
 `.pth`; `predict` runs a padded canvas batch; `predict_image` stages one
 `data/voc.Sample` into its canvas bucket and returns the reference's
-per-class dict; `train_step` takes one optimizer step on a padded batch and
-`train_epoch` runs one over a dataset; `evaluate` runs predict over a
-dataset and returns the VOC mAP in percent.
+per-class dict; `train_step` takes one optimizer step on a padded batch
+(eagerly) and `train_epoch` runs the JAX package's production loop over a
+dataset: packed single steps and K-step blocks, each one program (a CUDA
+graph on a card), with the uploads in the prefetch thread; `evaluate` runs
+predict over a dataset and returns the VOC mAP in percent.
 """
 
 from __future__ import annotations
 
 import itertools
 import math
+import os
 import sys
-from typing import Dict, Iterable, Optional, Tuple
+import time
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from fasterrcnn_torch.config import ModelConfig, TrainConfig, select_canvas
-from fasterrcnn_torch.data.pipeline import Prefetcher, batched, make_host_batch
+from fasterrcnn_torch.data import pipeline
+from fasterrcnn_torch.data.pipeline import HostBatch, Prefetcher, batched, make_host_batch
 from fasterrcnn_torch.data.voc import Sample
 from fasterrcnn_torch.models.faster_rcnn import (
     Batch,
@@ -35,9 +40,14 @@ from fasterrcnn_torch.models.faster_rcnn import (
     init_params,
     make_predict_fn,
     make_train_step,
+    make_train_step_packed,
+    make_train_step_scan,
+    pack_aux,
+    snapshot_train_state,
 )
 from fasterrcnn_torch.utils import checkpoint as ckpt_lib
 from fasterrcnn_torch.utils import postprocess
+from fasterrcnn_torch.utils import profiling
 from fasterrcnn_torch.utils.stats import PrecisionRecallCurveCalculator, TrainingStatistics
 
 def resolve_device(device) -> torch.device:
@@ -78,36 +88,94 @@ class TrainOptimizer:
 
     Groups as `parameter_labels` gives them: "decayed" with weight decay,
     "plain" without, "frozen" held out (those parameters do not require
-    grad). When clipnorm > 0, each group's gradients are clipped by that
-    group's own global norm, as optax.clip_by_global_norm inside each
-    multi_transform group does (g * clipnorm / norm when norm >= clipnorm);
-    then torch.optim adds weight_decay * p to the gradient, as
-    optax.add_decayed_weights does before sgd or adam, and updates the
-    parameters in place; then the learning-rate schedule advances.
+    grad). A step runs optax's chain on each group: when clipnorm > 0 the
+    group's gradients are clipped by its own global norm (g * clipnorm /
+    norm when norm >= clipnorm, as optax.clip_by_global_norm inside each
+    multi_transform group); then weight_decay * p is added
+    (optax.add_decayed_weights); then optax's sgd (buf = g + momentum * buf,
+    update -lr * buf) or adam (moments mu and nu, bias corrections at
+    count + 1 in f32, update -lr * mu_hat / (sqrt(nu_hat) + eps)) updates
+    the parameters in place. Parameters without a gradient are skipped.
+
+    Everything that changes from step to step lives on the device: the
+    count of updates taken (`count`), the learning rate read from `lr_table`
+    at that count (the schedule computed on the host, once, and rounded to
+    f32 as a Python float given to a kernel is) and the moments. So a step
+    reads no host value and runs alike eagerly and replayed from a CUDA
+    graph. The moments are made, zero, before the first step.
     """
 
-    def __init__(self, optimizer: torch.optim.Optimizer, scheduler, clipnorm: float):
-        self.optimizer = optimizer
-        self.scheduler = scheduler
-        self.clipnorm = clipnorm
+    def __init__(self, groups: List[Tuple[List[torch.nn.Parameter], float]], train_cfg: TrainConfig,
+                 lr_table: List[float], device):
+        if train_cfg.optimizer not in ("sgd", "adam"):
+            raise ValueError(f"unknown optimizer {train_cfg.optimizer!r}")
+        self.kind = train_cfg.optimizer
+        self.groups = groups
+        self.clipnorm = train_cfg.clipnorm
+        self.momentum = train_cfg.momentum
+        self.betas = (train_cfg.beta1, train_cfg.beta2)
+        self.eps = 1e-8
+        self.lr_table = torch.tensor(lr_table, dtype=torch.float32, device=device)
+        self.count = torch.zeros((), dtype=torch.int64, device=device)
+        self.lr = self.lr_table[0].clone()  # the learning rate of the last step
+        self._moments: Optional[List[List[List[torch.Tensor]]]] = None
+
+    def _state(self) -> List[List[List[torch.Tensor]]]:
+        """Per group, one list of zero tensors a parameter for each moment
+        (sgd: the trace; adam: mu and nu), made at the first call."""
+        if self._moments is None:
+            n = 1 if self.kind == "sgd" else 2
+            self._moments = [[[torch.zeros_like(p) for p in params] for _ in range(n)] for params, _ in self.groups]
+        return self._moments
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        """Every tensor a step writes besides the parameters."""
+        return [self.count, self.lr] + [t for group in self._state() for moment in group for t in moment]
 
     def zero_grad(self) -> None:
-        self.optimizer.zero_grad(set_to_none=True)
+        for params, _ in self.groups:
+            for p in params:
+                p.grad = None
 
     @torch.no_grad()
     def step(self) -> None:
-        if self.clipnorm > 0:
-            for group in self.optimizer.param_groups:
-                grads = [p.grad for p in group["params"] if p.grad is not None]
-                if not grads:
-                    continue
+        moments = self._state()
+        index = torch.clamp(self.count, max=self.lr_table.numel() - 1).view(1)
+        self.lr.copy_(self.lr_table.index_select(0, index)[0])
+        neg_lr = -self.lr
+        if self.kind == "adam":
+            b1, b2 = self.betas
+            t = (self.count + 1).float()
+            bc1, bc2 = 1.0 - b1 ** t, 1.0 - b2 ** t
+        for (params, weight_decay), state in zip(self.groups, moments):
+            live = [i for i, p in enumerate(params) if p.grad is not None]
+            if not live:
+                continue
+            ps = [params[i] for i in live]
+            grads = [p.grad for p in ps]
+            if self.clipnorm > 0:
                 norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
                 factor = torch.where(norm < self.clipnorm, 1.0, self.clipnorm / norm)
-                for g in grads:
-                    g.mul_(factor)
-        self.optimizer.step()
-        if self.scheduler is not None:
-            self.scheduler.step()
+                torch._foreach_mul_(grads, factor)
+            if weight_decay > 0:
+                grads = torch._foreach_add(grads, ps, alpha=weight_decay)
+            if self.kind == "sgd":
+                trace = [state[0][i] for i in live]
+                torch._foreach_mul_(trace, self.momentum)
+                torch._foreach_add_(trace, grads)
+                updates = torch._foreach_mul(trace, neg_lr)
+            else:
+                mu, nu = ([m[i] for i in live] for m in state)
+                torch._foreach_mul_(mu, b1)
+                torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+                torch._foreach_mul_(nu, b2)
+                torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+                denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+                torch._foreach_add_(denom, self.eps)
+                updates = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+                torch._foreach_mul_(updates, neg_lr)
+            torch._foreach_add_(ps, updates)
+        self.count += 1
 
 
 def make_optimizer(
@@ -119,17 +187,10 @@ def make_optimizer(
     labels = parameter_labels(model)
     params = dict(model.named_parameters())
     groups = [
-        {"params": [params[n] for n, g in labels.items() if g == "decayed"], "weight_decay": train_cfg.weight_decay},
-        {"params": [params[n] for n, g in labels.items() if g == "plain"], "weight_decay": 0.0},
+        ([params[n] for n, g in labels.items() if g == "decayed"], train_cfg.weight_decay),
+        ([params[n] for n, g in labels.items() if g == "plain"], 0.0),
     ]
     lr = train_cfg.learning_rate
-    if train_cfg.optimizer == "adam":
-        opt = torch.optim.Adam(groups, lr=lr, betas=(train_cfg.beta1, train_cfg.beta2), eps=1e-8)
-    elif train_cfg.optimizer == "sgd":
-        opt = torch.optim.SGD(groups, lr=lr, momentum=train_cfg.momentum)
-    else:
-        raise ValueError(f"unknown optimizer {train_cfg.optimizer!r}")
-    scheduler = None
     if train_cfg.lr_schedule == "cosine":
         warmup = max(train_cfg.warmup_steps, 1)
         if train_cfg.total_steps <= warmup:
@@ -138,10 +199,14 @@ def make_optimizer(
                 f"(got total_steps={train_cfg.total_steps})"
             )
         total = train_cfg.total_steps
-        scheduler = torch.optim.lr_scheduler.LambdaLR(opt, lambda n: warmup_cosine_factor(n, warmup, total))
-    elif train_cfg.lr_schedule != "constant":
+        # Past total_steps the factor stays at its last value, 0.
+        lr_table = [lr * warmup_cosine_factor(n, warmup, total) for n in range(total + 1)]
+    elif train_cfg.lr_schedule == "constant":
+        lr_table = [lr]
+    else:
         raise ValueError(f"unknown lr_schedule {train_cfg.lr_schedule!r}")
-    return TrainOptimizer(opt, scheduler, train_cfg.clipnorm), labels
+    device = next(model.parameters()).device
+    return TrainOptimizer(groups, train_cfg, lr_table, device), labels
 
 
 class Engine:
@@ -164,11 +229,23 @@ class Engine:
         # Uniforms of the minibatch and proposal sampling, on the device.
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._predict_fns: Dict[Tuple[int, int], callable] = {}
+        # One step index per batch trained on, across epochs (pack_aux).
+        self._global_step = 0
+        # Phase breakdown of the most recent train_epoch (see there).
+        self.last_epoch_trace: Dict[str, float] = {}
+        cuda = self.device.type == "cuda"
+        # The prefetch thread's uploads run on this stream; every graph of
+        # this engine allocates from one pool (they replay one at a time).
+        self._copy_stream = torch.cuda.Stream(self.device) if cuda else None
+        self._graph_pool = torch.cuda.graph_pool_handle() if cuda else None
         self._restart_optimizer()
 
     def _restart_optimizer(self) -> None:
         self.optimizer, self.labels = make_optimizer(self.model_cfg, self.train_cfg, self.model)
+        # Every step program is bound to the optimizer's state.
         self._train_steps: Dict[Tuple[int, int], callable] = {}
+        self._packed_steps: Dict[Tuple[int, int], callable] = {}
+        self._scan_steps: Dict[Tuple[Tuple[int, int], int], callable] = {}
 
     def set_params(self, state_dict) -> None:
         """Install a full state_dict (no missing or unexpected keys) and
@@ -196,6 +273,49 @@ class Engine:
             self._train_steps[canvas_hw] = make_train_step(self.model, self.optimizer, *canvas_hw)
         return self._train_steps[canvas_hw]
 
+    def compiled_canvases(self):
+        """Canvas buckets a train step has been built for (any API)."""
+        return sorted(set(self._train_steps) | set(self._packed_steps) | {c for c, _ in self._scan_steps})
+
+    def packed_step_for(self, canvas_hw: Tuple[int, int]):
+        """Single-step packed program (models/faster_rcnn.make_train_step_packed):
+        one upload of images and one of aux, one graph replay a step. Used
+        for K-block residues and when FRCNN_SCAN_STEPS=1."""
+        canvas_hw = tuple(canvas_hw)
+        if canvas_hw not in self._packed_steps:
+            self._packed_steps[canvas_hw] = make_train_step_packed(
+                self.model, self.optimizer, *canvas_hw, generator=self.generator, pool=self._graph_pool)
+        return self._packed_steps[canvas_hw]
+
+    def scan_step_for(self, canvas_hw: Tuple[int, int], k: int):
+        """The production train-loop program: K optimizer steps a replay,
+        two stacked uploads per K steps (models/faster_rcnn.make_train_step_scan)."""
+        key = (tuple(canvas_hw), k)
+        if key not in self._scan_steps:
+            self._scan_steps[key] = make_train_step_scan(
+                self.model, self.optimizer, *key[0], k, generator=self.generator, pool=self._graph_pool)
+        return self._scan_steps[key]
+
+    def train_step_memory_analysis(self, canvas_hw: Tuple[int, int], batch_size: int) -> dict:
+        """Memory of one train step at this shape (--memory-stats), from
+        `utils/profiling.step_memory_analysis`: one eager step on a blank
+        batch, after which the parameters, the optimizer state and the
+        generators are put back as they were."""
+        ch, cw = canvas_hw
+        b, g = batch_size, self.model_cfg.max_gt_boxes
+        hb = HostBatch(
+            (ch, cw), np.zeros((b, ch, cw, 3), np.uint8), np.tile(np.float32([[ch, cw]]), (b, 1)),
+            np.zeros((b, g, 4), np.float32), np.zeros((b, g), np.int32), np.zeros((b, g), np.float32),
+            np.ones((b,), np.float32), [],
+        )
+        batch = self.to_device(hb)
+        restore = snapshot_train_state(self.model, self.optimizer, (self.generator,))
+        arguments = [*self.model.parameters(), *self.optimizer.state_tensors(), *batch]
+        try:
+            return profiling.step_memory_analysis(lambda: tuple(self.train_step(batch)), arguments)
+        finally:
+            restore()
+
     def to_device(self, batch) -> Batch:
         """A padded batch on this engine's device: `batch` is a
         data/pipeline.HostBatch (numpy) or a Batch."""
@@ -218,33 +338,156 @@ class Engine:
         max_steps: Optional[int] = None,
     ) -> TrainingStatistics:
         """One pass over `dataset` (samples, see data/voc.Sample) in padded
-        canvas batches, assembled in a background thread; at most max_steps
-        steps. The losses are fetched to the host in blocks of steps, not
-        after every step."""
-        stats = stats or TrainingStatistics()
-        batches = Prefetcher(batched(iter(dataset), batch_size, self.model_cfg.max_gt_boxes))
-        pending = []
-        steps = 0
+        canvas batches; at most max_steps steps (checked before each
+        program, so a K-step block may pass it).
 
-        def flush():
-            if not pending:
-                return
-            rows = torch.stack([torch.stack(list(losses)) for losses in pending]).cpu().numpy()
-            pending.clear()
-            for row in rows:
+        The JAX package's production loop. K consecutive same-canvas
+        batches (FRCNN_SCAN_STEPS, default 8) are stacked into one
+        (K, B, ...) uint8 image tensor and one (K, B, aux_width) f32 aux
+        tensor and run as one K-step program (`scan_step_for`); each
+        canvas's residue of fewer than K batches runs as single packed steps
+        (`packed_step_for`), never padded: a zero-weight step would still
+        move the momentum. Batch assembly and the uploads both run in the
+        prefetch thread: each tensor is assembled in pinned host memory and
+        copied on the engine's copy stream, and the step's stream waits on
+        the copy's event. The losses stay on the device and are copied to
+        pinned host memory every FRCNN_LOSS_FLUSH_STEPS steps (default 32),
+        the copy started at the flush and read at the next one. Under
+        autograd anomaly mode (`utils/profiling.nan_guard`) every step runs
+        eagerly and its losses are checked on the host.
+
+        `last_epoch_trace` records, always, the seconds the main thread
+        spent waiting for staged batches (wait_s), inside the program calls
+        (dispatch_s), in the final drain (drain_s) and elsewhere (other_s);
+        FRCNN_EPOCH_TRACE=1 also prints it to stderr.
+        """
+        stats = stats or TrainingStatistics()
+        start_step = self._global_step
+        scan_k = max(1, int(os.environ.get("FRCNN_SCAN_STEPS", "8")))
+        flush_every = int(os.environ.get("FRCNN_LOSS_FLUSH_STEPS", "32"))
+        cuda = self.device.type == "cuda"
+
+        def staged(kind, canvas_hw, images, aux, n):
+            tensors, ready = pipeline.upload(
+                (pipeline.stage(images, cuda), pipeline.stage(aux, cuda)), self.device, self._copy_stream)
+            if kind == "step":
+                tensors = tuple(t[0] for t in tensors)
+            return kind, canvas_hw, tensors, ready, n
+
+        def to_device(host_batches):
+            # Emitted items: (kind, canvas_hw, (images, aux), ready, n_steps)
+            # with kind "scan" (a stacked (K, B, ...) block) or "step".
+            idx = 0
+            pending: Dict[Tuple[int, int], list] = {}
+            for hb in host_batches:
+                step_idx = start_step + idx
+                idx += 1
+                if scan_k == 1:
+                    yield staged("step", hb.canvas_hw, [hb.images], [pack_aux(hb, step_idx)], 1)
+                    continue
+                block = pending.setdefault(hb.canvas_hw, [])
+                block.append((hb, step_idx))
+                if len(block) == scan_k:
+                    pending[hb.canvas_hw] = []
+                    yield staged("scan", hb.canvas_hw, [b.images for b, _ in block],
+                                 [pack_aux(b, si) for b, si in block], scan_k)
+            for canvas_hw, block in pending.items():
+                for hb, step_idx in block:
+                    yield staged("step", canvas_hw, [hb.images], [pack_aux(hb, step_idx)], 1)
+
+        # The queue covers a loss-flush window of steps: while the main
+        # thread waits on a flush, the worker stages the next window.
+        batches = Prefetcher(
+            to_device(batched(iter(dataset), batch_size, self.model_cfg.max_gt_boxes)),
+            depth=max(2, flush_every // scan_k),
+        )
+        buf: list = []  # device loss blocks, each (n_i, 4)
+        buf_rows = 0
+        pending_block = None
+        steps_done = 0
+
+        def consume(host, ready):
+            if ready is not None:
+                ready.synchronize()
+            for row in host.numpy():
                 stats.on_training_step_values(row)
             if progress:
-                print(f"step {steps}: {stats.get_progbar_postfix()}", file=sys.stderr, flush=True)
+                print(f"step {stats._count}: {stats.get_progbar_postfix()}", file=sys.stderr, flush=True)
 
+        def flush():
+            # Start the copy of the buffered blocks and read the previous
+            # flush's, whose copy has had a whole flush period to land.
+            nonlocal pending_block, buf_rows
+            if not buf:
+                return
+            block = buf[0] if len(buf) == 1 else torch.cat(buf)
+            buf.clear()
+            buf_rows = 0
+            ready = None
+            if cuda:
+                host = torch.empty(block.shape, dtype=block.dtype, pin_memory=True)
+                host.copy_(block, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record()
+            else:
+                host = block
+            if pending_block is not None:
+                consume(*pending_block)
+            pending_block = (host, ready)
+
+        trace = os.environ.get("FRCNN_EPOCH_TRACE") == "1"
+        t_wait = t_dispatch = 0.0
+        t_begin = time.perf_counter()
         try:
-            for hb in batches:
-                if max_steps is not None and steps >= max_steps:
+            it = iter(batches)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    kind, canvas_hw, tensors, ready, n = next(it)
+                except StopIteration:
                     break
-                pending.append(self.train_step(hb))
-                steps += 1
-                if len(pending) >= 32:
+                t_wait += time.perf_counter() - t0
+                if max_steps is not None and steps_done >= max_steps:
+                    break
+                t0 = time.perf_counter()
+                pipeline.arrived(tensors, ready)
+                if kind == "scan":
+                    rows = self.scan_step_for(canvas_hw, n)(*tensors)
+                else:
+                    rows = self.packed_step_for(canvas_hw)(*tensors)[1][None]
+                if torch.is_anomaly_enabled():
+                    profiling.check_finite(rows, self._global_step)
+                buf.append(rows)
+                t_dispatch += time.perf_counter() - t0
+                self._global_step += n
+                steps_done += n
+                buf_rows += n
+                if buf_rows >= flush_every:
                     flush()
+            t0 = time.perf_counter()
             flush()
+            if pending_block is not None:
+                consume(*pending_block)
+            t_drain = time.perf_counter() - t0
+            total = time.perf_counter() - t_begin
+            self.last_epoch_trace = {
+                "steps": steps_done,
+                "total_s": round(total, 3),
+                "wait_s": round(t_wait, 3),
+                "dispatch_s": round(t_dispatch, 3),
+                "drain_s": round(t_drain, 3),
+                "other_s": round(total - t_wait - t_dispatch - t_drain, 3),
+            }
+            if trace:
+                print(
+                    f"[epoch-trace] steps={steps_done} total={total:.3f}s "
+                    f"wait-for-staging={t_wait:.3f}s "
+                    f"dispatch-calls={t_dispatch:.3f}s "
+                    f"final-drain={t_drain:.3f}s "
+                    f"other={total - t_wait - t_dispatch - t_drain:.3f}s",
+                    file=sys.stderr,
+                    flush=True,
+                )
         finally:
             batches.close()
         return stats

@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from fasterrcnn_torch.data.image import ChannelOrder, PreprocessingParams
+from fasterrcnn_torch.ops import constants
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,9 +50,7 @@ def normalize_images(
     if pre.channel_order == ChannelOrder.BGR:
         x = x.flip(-1)
     x = x * pre.scaling
-    means = torch.tensor(pre.means, dtype=torch.float32, device=x.device)
-    stds = torch.tensor(pre.stds, dtype=torch.float32, device=x.device)
-    x = (x - means) / stds
+    x = (x - constants.values(pre.means, x.device)) / constants.values(pre.stds, x.device)
     return x.to(dtype)
 
 

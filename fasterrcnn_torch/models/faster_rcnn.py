@@ -30,6 +30,7 @@ from fasterrcnn_torch.models.resnet import FrozenBatchNorm
 from fasterrcnn_torch.models.rpn import RPNHead, generate_proposals
 from fasterrcnn_torch.ops import anchors as anchor_ops
 from fasterrcnn_torch.ops import boxes as box_ops
+from fasterrcnn_torch.ops import constants
 from fasterrcnn_torch.ops import nms as nms_ops
 from fasterrcnn_torch.ops import roi as roi_ops
 from fasterrcnn_torch.ops import sampling as sampling_ops
@@ -165,7 +166,7 @@ def proposal_masks(cfg: ModelConfig, grid, image_hw: torch.Tensor):
         hw[:, 0].to(torch.int32), hw[:, 1].to(torch.int32), spec.feature_pixels, spec.fm_ceil_mode
     )
     exists = anchor_ops.anchor_exists(grid, fh, fw, device=dev)
-    corners = torch.as_tensor(grid.corners, device=dev)
+    corners = constants.array(grid.corners, dev)
     valid = anchor_ops.anchor_validity(corners, hw[:, 0], hw[:, 1])
     train_valid = exists & valid
     proposal = exists if cfg.allow_edge_proposals else train_valid
@@ -208,17 +209,13 @@ def make_predict_fn(model: FasterRCNN, canvas_h: int, canvas_w: int):
     num_fg = cfg.num_classes - 1
     # 0 = uncapped: every per-class survivor fits (survivors <= proposals).
     max_det = cfg.detector.max_detections_per_class or cfg.rpn.post_nms_infer
-    centers_by_device: Dict[torch.device, torch.Tensor] = {}
 
     @torch.inference_mode()
     def predict(images: torch.Tensor, image_hw: torch.Tensor, score_threshold: float = 0.05):
         if tuple(images.shape[1:3]) != (canvas_h, canvas_w):
             raise ValueError(f"images {tuple(images.shape)} on a {canvas_h}x{canvas_w} canvas")
         model.eval()
-        dev = images.device
-        if dev not in centers_by_device:
-            centers_by_device[dev] = torch.as_tensor(grid.centers, device=dev)
-        centers = centers_by_device[dev]
+        centers = constants.array(grid.centers, images.device)
         hw = image_hw.float()
 
         fm, props = infer_proposals(model, grid, centers, images, hw)
@@ -284,8 +281,8 @@ def compute_losses(
     dev = batch.images.device
     hw = batch.image_hw.float()
     b = hw.shape[0]
-    centers = torch.as_tensor(grid.centers, device=dev)
-    corners = torch.as_tensor(grid.corners, device=dev)
+    centers = constants.array(grid.centers, dev)
+    corners = constants.array(grid.corners, dev)
     if draws is None:
         draws = draw_train_uniforms(cfg, grid, b, generator, dev)
 
@@ -372,23 +369,269 @@ def make_train_step(model: FasterRCNN, optimizer, canvas_h: int, canvas_w: int):
     def train_step(batch: Batch, draws: Optional[TrainDraws] = None, generator: Optional[torch.Generator] = None):
         if tuple(batch.images.shape[1:3]) != (canvas_h, canvas_w):
             raise ValueError(f"images {tuple(batch.images.shape)} on a {canvas_h}x{canvas_w} canvas")
-        model.train()
-        optimizer.zero_grad()
-        total, losses = compute_losses(model, batch, grid, draws=draws, generator=generator)
-        total.backward()
-        optimizer.step()
-        return Losses(*(v.detach() for v in losses))
+        return _optimizer_step(model, optimizer, batch, grid, draws, generator)
 
     return train_step
 
 
+def _optimizer_step(model: FasterRCNN, optimizer, batch: Batch, grid, draws=None, generator=None) -> Losses:
+    """Training mode, the losses, their backward and one optimizer step;
+    the detached losses. Every train step of the module runs this."""
+    model.train()
+    optimizer.zero_grad()
+    total, losses = compute_losses(model, batch, grid, draws=draws, generator=generator)
+    total.backward()
+    optimizer.step()
+    return Losses(*(v.detach() for v in losses))
+
+
+# ---------------------------------------------------------------------------
+# Packed train steps (the production Engine path)
+# ---------------------------------------------------------------------------
+#
+# The JAX package folds everything of a batch but its uint8 images into one
+# (B, aux_width) f32 array, step index included, so that one step is two
+# uploads and one program. The port keeps that layout column for column. A
+# step is one program here too: on a CUDA device each make_train_step_* captures
+# its body in a CUDA graph at the first call and replays it after.
+
+
+def aux_width(max_gt: int) -> int:
+    """Columns of the packed aux array: hw(2) + boxes(4G) + classes(G) +
+    mask(G) + sample_weight(1) + step_idx(1)."""
+    return 2 + 6 * max_gt + 2
+
+
+def pack_aux(hb, step_idx: int) -> np.ndarray:
+    """Host-side packing of everything in Batch except images.
+
+    gt classes (< 21) and the step index (< 2^24) are exact in f32.
+    """
+    b = hb.images.shape[0]
+    g = hb.gt_boxes.shape[1]
+    return np.concatenate(
+        [
+            np.asarray(hb.image_hw, np.float32),
+            np.asarray(hb.gt_boxes, np.float32).reshape(b, g * 4),
+            np.asarray(hb.gt_classes, np.float32),
+            np.asarray(hb.gt_mask, np.float32),
+            np.asarray(hb.sample_weight, np.float32).reshape(b, 1),
+            np.full((b, 1), float(step_idx), np.float32),
+        ],
+        axis=1,
+    )
+
+
+def unpack_aux(images: torch.Tensor, aux: torch.Tensor, max_gt: int) -> Tuple[Batch, torch.Tensor]:
+    """(images (B,H,W,3) uint8, aux (B, aux_width) f32) -> (Batch, step
+    index as a 0-d int32 tensor), views of `aux` where the types allow."""
+    g = max_gt
+    b = aux.shape[0]
+    if aux.shape[1] != aux_width(g):
+        raise ValueError(f"packed aux width {aux.shape[1]} != aux_width({g})={aux_width(g)}")
+    batch = Batch(
+        images=images,
+        image_hw=aux[:, 0:2],
+        gt_boxes=aux[:, 2 : 2 + 4 * g].reshape(b, g, 4),
+        gt_classes=aux[:, 2 + 4 * g : 2 + 5 * g].to(torch.int32),
+        gt_mask=aux[:, 2 + 5 * g : 2 + 6 * g],
+        sample_weight=aux[:, 2 + 6 * g],
+    )
+    return batch, aux[0, 2 + 6 * g + 1].to(torch.int32)
+
+
+# The kernel wrappers of the train path. Each counts its launches in Python,
+# so a graph replay would add nothing: CapturedStep adds what its capture
+# counted once a replay.
+LAUNCH_COUNTERS = (nms_ops.nms_keep_mask, roi_ops.roi_pool_taps, roi_ops.roi_pool_taps_bwd)
+
+
+def train_tensors(model: nn.Module, optimizer) -> list:
+    """Every tensor a train step writes: parameters, buffers, optimizer state."""
+    return [*model.parameters(), *model.buffers(), *optimizer.state_tensors()]
+
+
+def snapshot_train_state(model: nn.Module, optimizer, generators=()):
+    """Copy everything a train step writes (`train_tensors`, the generators'
+    states and the model's device's default generator) and return a
+    function that puts it back."""
+    tensors = train_tensors(model, optimizer)
+    saved = [t.detach().clone() for t in tensors]
+    dev = tensors[0].device
+    gens = [(g, g.get_state()) for g in generators]
+    default = torch.cuda.get_rng_state(dev) if dev.type == "cuda" else torch.get_rng_state()
+
+    @torch.no_grad()
+    def restore():
+        for t, v in zip(tensors, saved):
+            t.copy_(v)
+        for g, state in gens:
+            g.set_state(state)
+        if dev.type == "cuda":
+            torch.cuda.set_rng_state(default, dev)
+        else:
+            torch.set_rng_state(default)
+
+    return restore
+
+
+class _Graph(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    inputs: Tuple[torch.Tensor, ...]  # static input buffers
+    output: torch.Tensor  # static output
+
+
+class CapturedStep:
+    """A train-step body, `body(*inputs) -> tensor`, run as one program.
+
+    On CPU tensors the body runs eagerly on the inputs. On CUDA tensors the
+    first call at each set of input shapes copies the inputs into static
+    buffers, runs the body once eagerly on a side stream (the warm-up
+    PyTorch's capture recipe asks for: cuDNN and cuBLAS pick and allocate
+    there) and puts back every parameter, optimizer state and generator
+    state it moved, so the warm-up adds no step; then it captures the body
+    in a `torch.cuda.CUDAGraph` with `generator` registered (its draws
+    advance at each replay as they would eagerly, and so do the default
+    generator's) and memory from `pool`. Each call, the first included,
+    copies its inputs into the static buffers of its shapes' graph, replays
+    it and returns a copy of the output. A capture that fails raises;
+    nothing falls back to running eagerly.
+
+    Runs eagerly on a CUDA device only where it must, and says so in
+    `captured` (False): under autograd anomaly mode (`utils/profiling.
+    nan_guard`: its checks read values on the host) and for roi_mode
+    "exact_pool" (`ops/roi.roi_pool_exact` sizes its gathers from the data).
+
+    `graphs` maps input shapes to their graph; `launches` maps each kernel
+    of `LAUNCH_COUNTERS` to the launches one replay holds (added to the
+    wrapper's count at each replay); `replays` counts the replays.
+    """
+
+    def __init__(self, body, model: FasterRCNN, optimizer, generator: Optional[torch.Generator] = None,
+                 pool=None):
+        self.body = body
+        self.model = model
+        self.optimizer = optimizer
+        self.generator = generator
+        self.pool = pool
+        self.graphs: Dict[Tuple[Tuple[int, ...], ...], _Graph] = {}
+        self.launches: Dict[str, int] = {}
+        self.replays = 0
+
+    @property
+    def captured(self) -> bool:
+        return self.model.cfg.roi_mode != "exact_pool" and not torch.is_anomaly_enabled()
+
+    def __call__(self, *inputs: torch.Tensor) -> torch.Tensor:
+        if inputs[0].device.type != "cuda" or not self.captured:
+            return self.body(*inputs)
+        key = tuple(tuple(x.shape) for x in inputs)
+        if key not in self.graphs:
+            self.graphs[key] = self._capture(inputs)
+        graph = self.graphs[key]
+        for static, x in zip(graph.inputs, inputs):
+            static.copy_(x)
+        graph.graph.replay()
+        for fn in LAUNCH_COUNTERS:
+            fn.launches += self.launches[fn.__name__]
+        self.replays += 1
+        return graph.output.clone()
+
+    def _capture(self, inputs) -> _Graph:
+        static = tuple(x.clone() for x in inputs)
+        gens = () if self.generator is None else (self.generator,)
+        restore = snapshot_train_state(self.model, self.optimizer, gens)
+        side = torch.cuda.Stream(inputs[0].device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self.body(*static)
+        torch.cuda.current_stream().wait_stream(side)
+        restore()
+        before = {fn.__name__: fn.launches for fn in LAUNCH_COUNTERS}
+        graph = torch.cuda.CUDAGraph()
+        for g in gens:
+            graph.register_generator_state(g)
+        try:
+            # thread_local: the prefetch thread's uploads (pinned buffers,
+            # event queries) go on during the capture, off its stream.
+            with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
+                output = self.body(*static)
+        except RuntimeError as err:
+            raise RuntimeError(f"capturing the train step in a CUDA graph failed: {err}") from err
+        finally:
+            # The capture recorded launches; it ran none.
+            self.launches = {fn.__name__: fn.launches - before[fn.__name__] for fn in LAUNCH_COUNTERS}
+            for fn in LAUNCH_COUNTERS:
+                fn.launches = before[fn.__name__]
+        return _Graph(graph, static, output)
+
+
+def _packed_body(model: FasterRCNN, optimizer, grid, generator):
+    """One optimizer step on a packed batch -> its (4,) loss vector."""
+    cfg = model.cfg
+
+    def step(images: torch.Tensor, aux: torch.Tensor) -> torch.Tensor:
+        batch, _ = unpack_aux(images, aux, cfg.max_gt_boxes)
+        return torch.stack(list(_optimizer_step(model, optimizer, batch, grid, generator=generator)))
+
+    return step
+
+
+def make_train_step_packed(model: FasterRCNN, optimizer, canvas_h: int, canvas_w: int,
+                           generator: Optional[torch.Generator] = None, pool=None):
+    """Packed-aux twin of make_train_step (the same loss graph by
+    construction: both call compute_losses; the sampling draws from
+    `generator`). Returns step(images (B,H,W,3) uint8, aux (B, aux_width)
+    f32) -> (Losses, loss_vec (4,)), one `CapturedStep` on a CUDA device."""
+    body = _packed_body(model, optimizer, anchor_grid_for(model.cfg, canvas_h, canvas_w), generator)
+    captured = CapturedStep(body, model, optimizer, generator, pool)
+
+    def step(images: torch.Tensor, aux: torch.Tensor):
+        if tuple(images.shape[1:3]) != (canvas_h, canvas_w):
+            raise ValueError(f"images {tuple(images.shape)} on a {canvas_h}x{canvas_w} canvas")
+        loss_vec = captured(images, aux)
+        return Losses(*loss_vec), loss_vec
+
+    step.captured_step = captured
+    return step
+
+
+def make_train_step_scan(model: FasterRCNN, optimizer, canvas_h: int, canvas_w: int, k: int,
+                         generator: Optional[torch.Generator] = None, pool=None):
+    """K optimizer steps per call: the packed step K times in one program.
+
+    Semantics are those of K sequential make_train_step_packed calls by
+    construction: the body is the packed step's body on each of the K
+    batches in turn. On a CUDA device the K steps are one CUDA graph (one
+    replay, K steps' kernels). Returns step(images_k (K,B,H,W,3) uint8,
+    aux_k (K,B,aux_width) f32) -> loss_block (K, 4).
+    """
+    one = _packed_body(model, optimizer, anchor_grid_for(model.cfg, canvas_h, canvas_w), generator)
+
+    def body(images_k: torch.Tensor, aux_k: torch.Tensor) -> torch.Tensor:
+        return torch.stack([one(images_k[i], aux_k[i]) for i in range(k)])
+
+    captured = CapturedStep(body, model, optimizer, generator, pool)
+
+    def step(images_k: torch.Tensor, aux_k: torch.Tensor) -> torch.Tensor:
+        if images_k.shape[0] != k or tuple(images_k.shape[2:4]) != (canvas_h, canvas_w):
+            raise ValueError(f"images {tuple(images_k.shape)}: expected {k} batches on a {canvas_h}x{canvas_w} canvas")
+        return captured(images_k, aux_k)
+
+    step.captured_step = captured
+    return step
+
+
 def _truncated_normal(shape, std: float, gen: torch.Generator) -> torch.Tensor:
-    """N(0, std) truncated to two standard deviations, by resampling."""
+    """N(0, std) truncated to two standard deviations, by resampling: each
+    round draws one value for every position still out of range, in index
+    order. Only those positions are checked again (the others stay)."""
     w = torch.randn(shape, generator=gen)
-    bad = w.abs() > 2.0
-    while bad.any():
-        w[bad] = torch.randn(int(bad.sum()), generator=gen)
-        bad = w.abs() > 2.0
+    flat = w.view(-1)
+    bad = (flat.abs() > 2.0).nonzero().squeeze(1)
+    while bad.numel():
+        flat[bad] = torch.randn(bad.numel(), generator=gen)
+        bad = bad[flat[bad].abs() > 2.0]
     return w * std
 
 

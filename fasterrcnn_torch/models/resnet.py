@@ -58,10 +58,24 @@ class FrozenBatchNorm(nn.Module):
         shape = (-1, 1, 1)
         return x * self.scale.to(x.dtype).view(shape) + self.bias.to(x.dtype).view(shape)
 
+    def affine_f32(self, x: torch.Tensor) -> torch.Tensor:
+        """The affine in f32 on any input type, unrounded (a bf16 input
+        promotes to f32 exactly inside the product)."""
+        shape = (-1, 1, 1)
+        return x * self.scale.view(shape) + self.bias.view(shape)
+
 
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 (stride here) -> 1x1, with a projection shortcut where the
-    shape changes."""
+    shape changes.
+
+    The convs compute in the input's type. What follows each conv (its
+    frozen BN, the ReLU; after conv3 also the shortcut's BN and the residual
+    add) is computed in f32 and rounded to the input's type once, where the
+    next conv reads it and at the block's output: the rounding of one XLA
+    fusion of those elementwise ops in bf16. In f32 this is the op-by-op
+    arithmetic.
+    """
 
     def __init__(self, in_channels: int, channels: int, stride: int = 1):
         super().__init__()
@@ -78,11 +92,12 @@ class Bottleneck(nn.Module):
             self.downsample_bn = FrozenBatchNorm(out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        residual = self.downsample_bn(self.downsample_conv(x)) if self.project else x
-        return F.relu(y + residual)
+        dt = x.dtype
+        y = F.relu(self.bn1.affine_f32(self.conv1(x))).to(dt)
+        y = F.relu(self.bn2.affine_f32(self.conv2(y))).to(dt)
+        y = self.bn3.affine_f32(self.conv3(y))
+        residual = self.downsample_bn.affine_f32(self.downsample_conv(x)) if self.project else x
+        return F.relu(y + residual).to(dt)
 
 
 class ResNetStage(nn.Sequential):

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from fasterrcnn_torch.ops import constants
+
 EPSILON = 1e-7
 
 
@@ -80,8 +82,8 @@ def decode_deltas(
     Deltas are first de-normalized (delta * std + mean).
     """
     dev = deltas.device
-    deltas = deltas.float() * torch.tensor(stds, dtype=torch.float32, device=dev)
-    deltas = deltas + torch.tensor(means, dtype=torch.float32, device=dev)
+    deltas = deltas.float() * constants.values(stds, dev)
+    deltas = deltas + constants.values(means, dev)
     center = anchor_centers[..., 2:4] * deltas[..., 0:2] + anchor_centers[..., 0:2]
     size = anchor_centers[..., 2:4] * torch.exp(deltas[..., 2:4])
     return torch.cat([center - 0.5 * size, center + 0.5 * size], dim=-1)

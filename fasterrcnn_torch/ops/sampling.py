@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from fasterrcnn_torch.ops import boxes as box_ops
+from fasterrcnn_torch.ops import constants
 
 Draws = Tuple[torch.Tensor, torch.Tensor]  # uniforms for the positive and negative draws
 
@@ -154,9 +155,7 @@ def label_and_sample_proposals(
     slot_gt = torch.gather(best_gt, 1, slots)
     assigned_gt = torch.gather(gt_corners, 1, slot_gt[:, :, None].expand(-1, -1, 4))
     targets = box_ops.encode_deltas(box_ops.corners_to_centers(assigned_gt), box_ops.corners_to_centers(boxes))
-    means = torch.tensor(delta_means, dtype=torch.float32, device=dev)
-    stds = torch.tensor(delta_stds, dtype=torch.float32, device=dev)
-    targets = (targets - means) / stds
+    targets = (targets - constants.values(delta_means, dev)) / constants.values(delta_stds, dev)
     targets = torch.where(torch.isfinite(targets), targets, 0.0)
 
     count = ((num_pos + num_neg) * (~empty).long()).squeeze(1)

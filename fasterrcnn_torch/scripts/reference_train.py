@@ -244,6 +244,200 @@ def run_draw(
     return row
 
 
+class StepRows:
+    """A TrainingStatistics stand-in for `Engine.train_epoch` that keeps
+    every step's loss row."""
+
+    def __init__(self):
+        self.rows = []
+        self._count = 0
+
+    def on_training_step_values(self, row):
+        self.rows.append(np.asarray(row, np.float64))
+        self._count += 1
+
+    def get_progbar_postfix(self):
+        return {}
+
+
+def _train_tensors(engine):
+    from fasterrcnn_torch.models.faster_rcnn import train_tensors
+
+    return train_tensors(engine.model, engine.optimizer)
+
+
+def train_state(engine):
+    """Everything an engine's train step reads and writes: parameters,
+    buffers, optimizer state, the sampling generator's and the card's
+    default generator's states."""
+    import torch
+
+    return ([t.detach().clone() for t in _train_tensors(engine)], engine.generator.get_state(),
+            torch.cuda.get_rng_state())
+
+
+def load_train_state(engine, state) -> None:
+    import torch
+
+    values, gen, default = state
+    with torch.no_grad():
+        for t, v in zip(_train_tensors(engine), values):
+            t.copy_(v)
+    engine.generator.set_state(gen)
+    torch.cuda.set_rng_state(default)
+    engine._global_step = 0
+
+
+def graph_against_eager(replicas: int = 6) -> Dict:
+    """The captured train programs (`Engine.train_epoch`, FRCNN_SCAN_STEPS=2
+    and =1) against eager `Engine.train_step` on the card, on the every-box
+    config, f32 with TF32 off, SGD under a cosine schedule, 5 batches of 2.
+
+    Eager runs on the card differ from run to run (K3's float reductions and
+    cuDNN's backward are not deterministic), and a trajectory amplifies
+    that: once a decoded proposal crosses an IoU threshold, a label flips,
+    the detector loss moves by ~1e-4 in about a quarter of the runs, and the
+    parameters part with it (the largest gap between two eager runs' final
+    parameters came out between 3.2e-7 and 8.2e-7 from call to call). Two
+    samples of such a spread bound nothing, so the checks are:
+
+      * trajectories: `replicas` eager runs and the two `train_epoch` runs
+        from the same first state; step 0's losses identical everywhere (the
+        later losses and the final parameters are reported beside the eager
+        runs' spread, not checked);
+      * teacher-forced programs: before each program (a 2-step block or a
+        single step) the graph engine and `replicas - 1` eager replicas are
+        put into the eager reference's state; the program's first losses
+        must be identical, and its later losses and the parameters after it
+        within twice the largest gap between two eager replicas over the
+        programs of both runs (one backward's nondeterminism, a few ulps,
+        measured on every program);
+      * the packed program, step by step: the learning rate of each step
+        and the sampling generator's offset after it equal the eager run's
+        (every replay draws afresh).
+
+    Returns the measurements and `failures`, one message per failed check.
+    """
+    import os
+
+    import torch
+    from fasterrcnn_torch.config import TrainConfig
+    from fasterrcnn_torch.data.pipeline import batched
+    from fasterrcnn_torch.data.synthetic import SyntheticDataset
+    from fasterrcnn_torch.engine import Engine, warmup_cosine_factor
+    from fasterrcnn_torch.models.faster_rcnn import pack_aux
+
+    cfg = every_box_config()
+    train_cfg = TrainConfig(learning_rate=1e-3, lr_schedule="cosine", warmup_steps=2, total_steps=6)
+
+    def data():
+        return SyntheticDataset(num_samples=10, height=120, width=150, seed=3)
+
+    host = list(batched(iter(data()), 2, cfg.max_gt_boxes))
+    canvas = host[0].canvas_hw
+    dev = torch.device("cuda")
+    failures = []
+
+    def params(engine):
+        return [p.detach().clone() for p in engine.model.parameters()]
+
+    def gap(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    def eager_rows(engine, batches):
+        return np.array([[v.item() for v in engine.train_step(hb)] for hb in batches])
+
+    ref, replica = Engine(cfg, train_cfg, seed=0), Engine(cfg, train_cfg, seed=0)
+    graphs = {k: Engine(cfg, train_cfg, seed=0) for k in (2, 1)}
+    first = train_state(ref)
+
+    # Trajectories from the first state.
+    eager = []
+    for _ in range(replicas):
+        load_train_state(replica, first)
+        eager.append((eager_rows(replica, host), params(replica)))
+    param_spread = max(gap(a[1], b[1]) for i, a in enumerate(eager) for b in eager[i + 1:])
+    loss_spread = max(float(np.abs(a[0] - b[0]).max()) for i, a in enumerate(eager) for b in eager[i + 1:])
+    out = {"eager_param_spread": param_spread, "eager_loss_spread": loss_spread}
+    for k, engine in graphs.items():
+        load_train_state(engine, first)
+        log = StepRows()
+        os.environ["FRCNN_SCAN_STEPS"] = str(k)
+        try:
+            engine.train_epoch(data(), batch_size=2, stats=log)
+        finally:
+            del os.environ["FRCNN_SCAN_STEPS"]
+        rows = np.array(log.rows)
+        programs = [engine.packed_step_for(canvas), *engine._scan_steps.values()]
+        if not all(p.captured_step.graphs for p in programs):
+            failures.append(f"FRCNN_SCAN_STEPS={k}: a program ran uncaptured")
+        if rows.shape != (5, 4) or not np.array_equal(rows[0], eager[0][0][0]):
+            failures.append(f"FRCNN_SCAN_STEPS={k}: step 0 losses {rows[:1]} != eager {eager[0][0][0]}")
+            continue
+        out[f"trajectory_scan_steps_{k}"] = {
+            "loss_gap": float(np.abs(rows[1:] - eager[0][0][1:]).max()), "param_gap": gap(params(engine), eager[0][1]),
+            "last_epoch_trace": dict(engine.last_epoch_trace)}
+
+    # Teacher-forced programs.
+    graph_gaps = {k: [0.0, 0.0] for k in graphs}  # (later losses, parameters)
+    spreads = [0.0, 0.0]
+    for k, engine in graphs.items():
+        load_train_state(ref, first)
+        for start in range(0, len(host), k):
+            block = host[start:start + k]
+            state = train_state(ref)
+            runs = [(eager_rows(ref, block), params(ref))]
+            after = train_state(ref)
+            for _ in range(replicas - 1):
+                load_train_state(replica, state)
+                runs.append((eager_rows(replica, block), params(replica)))
+            load_train_state(engine, state)
+            images = torch.as_tensor(np.stack([hb.images for hb in block]), device=dev)
+            aux = torch.as_tensor(np.stack([pack_aux(hb, start + i) for i, hb in enumerate(block)]), device=dev)
+            if len(block) == k and k > 1:
+                rows = engine.scan_step_for(canvas, k)(images, aux).cpu().numpy()
+            else:
+                rows = engine.packed_step_for(canvas)(images[0], aux[0])[1][None].cpu().numpy()
+            graph_run = (rows.astype(np.float64), params(engine))
+            if any(not np.array_equal(r[0][0], runs[0][0][0]) for r in (*runs[1:], graph_run)):
+                failures.append(f"FRCNN_SCAN_STEPS={k}, program at step {start}: first losses differ")
+            gaps = graph_gaps[k]
+            gaps[0] = max(gaps[0], float(np.abs(graph_run[0][1:] - runs[0][0][1:]).max(initial=0.0)))
+            gaps[1] = max(gaps[1], gap(graph_run[1], runs[0][1]))
+            for i, a in enumerate(runs):
+                for b in runs[i + 1:]:
+                    spreads[0] = max(spreads[0], float(np.abs(a[0][1:] - b[0][1:]).max(initial=0.0)))
+                    spreads[1] = max(spreads[1], gap(a[1], b[1]))
+            load_train_state(ref, after)
+    out["teacher_forced_eager_spread"] = {"loss": spreads[0], "param": spreads[1]}
+    for k, (loss_gap, param_gap) in graph_gaps.items():
+        out[f"teacher_forced_scan_steps_{k}"] = {"loss_gap": loss_gap, "param_gap": param_gap}
+        if loss_gap > 2 * spreads[0] or param_gap > 2 * spreads[1]:
+            failures.append(f"FRCNN_SCAN_STEPS={k}, teacher-forced: graph gaps {loss_gap}, {param_gap} over twice "
+                            f"the eager spreads {spreads}")
+
+    # The packed program step by step: learning rates and generator offsets.
+    engine = graphs[1]
+    load_train_state(ref, first)
+    load_train_state(engine, first)
+    lrs, offsets, graph_lrs, graph_offsets = [], [], [], []
+    step = engine.packed_step_for(canvas)
+    for i, hb in enumerate(host):
+        ref.train_step(hb)
+        lrs.append(ref.optimizer.lr.item())
+        offsets.append(ref.generator.get_offset())
+        step(torch.as_tensor(hb.images, device=dev), torch.as_tensor(pack_aux(hb, i), device=dev))
+        graph_lrs.append(engine.optimizer.lr.item())
+        graph_offsets.append(engine.generator.get_offset())
+    want = [float(np.float32(1e-3 * warmup_cosine_factor(i, 2, 6))) for i in range(len(host))]
+    if not lrs == graph_lrs == want:
+        failures.append(f"learning rates: eager {lrs}, graph {graph_lrs}, schedule {want}")
+    if graph_offsets != offsets or not all(b > a for a, b in zip(offsets, offsets[1:])):
+        failures.append(f"generator offsets: eager {offsets}, graph {graph_offsets}")
+    out.update(learning_rates=graph_lrs, generator_offsets=graph_offsets, failures=failures)
+    return out
+
+
 def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     import torch
 

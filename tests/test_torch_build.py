@@ -1,5 +1,5 @@
-"""The port's CUDA sources ship in its wheel, and the kernels build where
-they can be written.
+"""The port's CUDA sources and the native reader's C++ source ship in its
+wheel, and the kernels build where they can be written.
 
 No card and no nvcc are needed: the wheel is built offline from a copy of
 the project files (`pip wheel --no-deps --no-build-isolation`), and the
@@ -35,6 +35,9 @@ def test_wheel_carries_every_kernel_source(tmp_path):
     assert {k.source for k in _build.KERNELS.values()} <= set(sources)
     for name in sources:
         assert f"fasterrcnn_torch/ops/kernels/csrc/{name}" in names, name
+    # The native JPEG reader's source, built with g++ at first use.
+    assert "fasterrcnn_torch/data/csrc/loader.cc" in names
+    assert not any("/build/" in n for n in names)
 
 
 def test_kernels_build_beside_the_package_when_it_is_writable(tmp_path):

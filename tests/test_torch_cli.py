@@ -5,7 +5,9 @@ Each test runs in its own temporary working directory, because the CLI
 writes predictions.png there, as the JAX package's CLI does.
 """
 
+import json
 import os
+import re
 import shutil
 
 import numpy as np
@@ -134,15 +136,48 @@ def test_cli_dump_anchors_renders_deferred_voc(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--memory-stats"], "A15"),
-    (["--debug-nans"], "A15"),
-    (["--profile-dir", "prof"], "A15"),
     (["--num-devices", "2"], "A16"),
     (["--tp", "2"], "A16"),
 ])
 def test_cli_waiting_flags_raise_naming_their_item(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main([*TRAIN, "--epochs", "1", *flags])
+
+
+def test_cli_memory_stats_and_debug_nans_print_the_jax_lines(tmp_path, capsys):
+    """--memory-stats prints the JAX CLI's train-step line for each canvas
+    the epoch trained on, with temp "not measured" on the CPU (its
+    allocator keeps no peak) and no device line (the JAX CLI prints none on
+    a CPU either); --debug-nans trains under anomaly mode, restored after."""
+    cli.main([*TRAIN, "--synthetic", "4", "--epochs", "1", "--memory-stats", "--debug-nans"])
+    out = capsys.readouterr().out
+    lines = [line for line in out.splitlines() if line.startswith("Train step memory : ")]
+    assert lines == [lines[0]] and re.fullmatch(
+        r"Train step memory : canvas=\(128, 160\) temp=not measured args=[0-9.]+ MiB out=0\.0 MiB code=0\.0 MiB",
+        lines[0]), lines
+    assert "Device memory     :" not in out
+    assert "Mean Average Precision" in out and not torch.is_anomaly_enabled()
+
+
+def test_cli_profile_dir_writes_a_trace_of_the_first_epoch(tmp_path, capsys):
+    cli.main([*TRAIN, "--synthetic", "4", "--epochs", "2", "--profile-dir", "prof"])
+    out = capsys.readouterr().out
+    assert out.count("Wrote profiler trace to prof") == 1
+    assert out.index("Epoch 1/2") < out.index("Wrote profiler trace to prof") < out.index("Epoch 2/2")
+    trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    # The first epoch's steps: the RPN's NMS and the loss backward ran inside.
+    assert any("nms" in n or "sort" in n for n in names) and any("backward" in n.lower() for n in names)
+
+
+def test_cli_debug_nans_raises_at_a_nan_step(tmp_path, monkeypatch):
+    """A step whose losses hold a NaN stops --debug-nans training."""
+    from fasterrcnn_torch.models import losses
+
+    monkeypatch.setattr(losses, "rpn_class_loss", lambda logits, *a: torch.full_like(logits[..., 0], float("nan")))
+    with pytest.raises(FloatingPointError, match="non-finite loss at step 0"):
+        cli.main([*TRAIN, "--synthetic", "4", "--epochs", "1", "--debug-nans"])
+    assert not torch.is_anomaly_enabled()
 
 
 @pytest.mark.parametrize("backbone", ["resnet50", "resnet101", "resnet152"])

@@ -571,3 +571,118 @@ def test_cuda_evaluate_matches_a_cpu_engine(cuda, tmp_path, monkeypatch):
         assert detections > 0 and want > 0.0
         assert score_err <= DETECTION_ATOL and box_err <= DETECTION_ATOL
         assert got == want
+
+
+# ---------------------------------------------------------------------------
+# The captured train loop (models/faster_rcnn.CapturedStep, Engine.train_epoch)
+# ---------------------------------------------------------------------------
+
+
+def flat_samples(n, hw=(120, 150)):
+    """n samples of one extent whose every pixel is the sample's index."""
+    from fasterrcnn_torch.data.voc import Sample
+
+    return [Sample(image_u8=np.full((*hw, 3), i % 256, np.uint8), image_hw=hw, gt_boxes=[], filepath=str(i))
+            for i in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan_steps", ["1", "4"])
+def test_cuda_uploads_from_the_prefetch_thread_arrive_before_the_step(cuda, monkeypatch, scan_steps):
+    """A fast prefetcher and a slow consumer over 64 batches: every step
+    reads back its own batch (the image's pixels encode the step index that
+    aux carries), so no upload is read before it lands or after its memory
+    went to a later upload."""
+    from fasterrcnn_torch.engine import Engine
+    from fasterrcnn_torch.models.faster_rcnn import Losses
+
+    monkeypatch.setenv("FRCNN_SCAN_STEPS", scan_steps)
+    monkeypatch.setenv("FRCNN_LOSS_FLUSH_STEPS", "8")
+    engine = Engine(reference_train.every_box_config(), seed=0)
+    bad = torch.zeros((), device=cuda)
+    steps = torch.zeros((), device=cuda)
+
+    def read(images, aux):
+        torch.cuda._sleep(2_000_000)  # the card is slow to reach the read
+        want = aux[..., 0, -1] % 256
+        got = images[..., 0, 0, 0, 0].float()
+        bad.add_((got != want).sum())
+        steps.add_(got.numel())
+
+    def packed(images, aux):
+        read(images, aux)
+        return Losses(*torch.zeros(4, device=cuda)), torch.zeros(4, device=cuda)
+
+    def scan(images, aux):
+        read(images, aux)
+        return torch.zeros(images.shape[0], 4, device=cuda)
+
+    monkeypatch.setattr(engine, "packed_step_for", lambda canvas: packed)
+    monkeypatch.setattr(engine, "scan_step_for", lambda canvas, k: scan)
+    engine.train_epoch(flat_samples(64), batch_size=1)
+    torch.cuda.synchronize()
+    assert int(steps) == 64 and int(bad) == 0 and engine._global_step == 64
+
+
+@pytest.mark.cuda
+def test_cuda_captured_epoch_matches_eager_steps(cuda):
+    """`reference_train.graph_against_eager`, as `chip_smoke.py` phase 6e
+    runs it: step 0's losses identical; each teacher-forced program's later
+    losses and parameters within twice the largest gap between eager
+    replicas (K3's float reductions and cuDNN's backward are not
+    deterministic); the learning rates and the generator's offsets of the
+    eager run."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = reference_train.graph_against_eager()
+    assert out["failures"] == []
+
+
+@pytest.mark.cuda
+def test_cuda_one_capture_per_canvas_and_k(cuda, monkeypatch):
+    """Two canvases, K=2, two epochs: one packed and one 2-step graph a
+    canvas, captured in the first epoch and only replayed in the second;
+    K1-K3 counted at capture and added once per replay."""
+    from fasterrcnn_torch.engine import Engine
+    from fasterrcnn_torch.models import faster_rcnn as frcnn
+
+    monkeypatch.setenv("FRCNN_SCAN_STEPS", "2")
+    engine = Engine(reference_train.every_box_config(), seed=0)
+    samples = flat_samples(6) + flat_samples(6, hw=(150, 120))
+    for s in samples:
+        s.image_u8 = np.random.default_rng(int(s.filepath)).integers(0, 255, s.image_u8.shape, dtype=np.uint8)
+    engine.train_epoch(samples, batch_size=2)
+    steps = {**engine._packed_steps, **engine._scan_steps}
+    assert sorted(engine._packed_steps) == [(128, 160), (160, 128)]
+    assert sorted(engine._scan_steps) == [((128, 160), 2), ((160, 128), 2)]
+    graphs = {key: [id(g.graph) for g in s.captured_step.graphs.values()] for key, s in steps.items()}
+    assert all(len(g) == 1 for g in graphs.values())
+    for fn in frcnn.LAUNCH_COUNTERS:
+        fn.launches = 0
+    engine.train_epoch(samples, batch_size=2)
+    torch.cuda.synchronize()
+    assert {key: [id(g.graph) for g in s.captured_step.graphs.values()] for key, s in steps.items()} == graphs
+    assert all(s.captured_step.replays == 2 for s in steps.values())
+    for fn in frcnn.LAUNCH_COUNTERS:
+        want = sum(s.captured_step.launches[fn.__name__] for s in steps.values())
+        assert want > 0 and fn.launches == want, fn.__name__
+    # Another batch size is another set of shapes: one more graph (each
+    # canvas's 6 samples at 3 are one 2-step block, no residue).
+    engine.train_epoch(samples, batch_size=3)
+    assert all(len(s.captured_step.graphs) == 2 for s in engine._scan_steps.values())
+    assert all(len(s.captured_step.graphs) == 1 for s in engine._packed_steps.values())
+
+
+@pytest.mark.cuda
+def test_cuda_a_capture_that_fails_raises(cuda):
+    """A body that reads a value on the host cannot be captured: the step
+    raises, it does not run eagerly instead."""
+    from fasterrcnn_torch.engine import Engine
+    from fasterrcnn_torch.models.faster_rcnn import CapturedStep
+
+    engine = Engine(reference_train.every_box_config(), seed=0)
+    step = CapturedStep(lambda x: x * float(x.sum()), engine.model, engine.optimizer)
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        step(torch.ones(4, device=cuda))
+    torch.cuda.synchronize()
+    assert float(torch.ones(2, device=cuda).sum()) == 2.0

@@ -28,7 +28,7 @@ from fasterrcnn_tpu.data import voc as jax_voc
 from fasterrcnn_tpu.utils import stats as jax_stats
 from fasterrcnn_torch import config as torch_config
 from fasterrcnn_torch import engine as torch_engine
-from fasterrcnn_torch.data import synthetic_voc, voc
+from fasterrcnn_torch.data import native_loader, synthetic_voc, voc
 from fasterrcnn_torch.data.voc import Box, Sample
 from fasterrcnn_torch.models.faster_rcnn import Detections
 from fasterrcnn_torch.utils import stats
@@ -161,6 +161,7 @@ def voc_test_split(tmp_path_factory):
 
 def test_evaluate_matches_jax_on_a_voc_split(voc_test_split, monkeypatch, capsys):
     monkeypatch.setattr(jax_native_loader, "available", lambda: False)
+    monkeypatch.setattr(native_loader, "available", lambda: False)
     jax_eng = jax_engine.Engine(tiny_config(jax_config), seed=0, init_canvas=(128, 160))
     port = torch_engine.Engine(tiny_config(torch_config), seed=1, device="cpu")
     port.set_params(from_jax_params(jax_eng.params))

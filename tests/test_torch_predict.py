@@ -250,8 +250,7 @@ def test_engine_binds_its_arguments_in_the_reference_order():
     train_cfg = torch_config.TrainConfig(learning_rate=0.25, optimizer="adam")
     engine = Engine(tiny_config(torch_config), train_cfg, 3, "cpu")
     assert engine.train_cfg is train_cfg and engine.device.type == "cpu"
-    assert engine.optimizer.optimizer.param_groups[0]["lr"] == 0.25
-    assert isinstance(engine.optimizer.optimizer, torch.optim.Adam)
+    assert engine.optimizer.lr_table.tolist() == [0.25] and engine.optimizer.kind == "adam"
     twin = Engine(tiny_config(torch_config), seed=3, device="cpu")
     for a, b in zip(engine.model.parameters(), twin.model.parameters()):
         assert torch.equal(a, b)

@@ -130,18 +130,45 @@ def test_feature_extractor_and_head_match_jax(models):
 
 
 def test_frozen_batchnorm_rounds_as_jax_in_bf16():
-    """x * scale + bias in the input's type, rounded after the product and
-    after the sum, as flax computes it: bit for bit."""
+    """The stem's frozen BN (the module's own forward): x * scale + bias in
+    the input's type, rounded after the product and after the sum, as flax
+    computes it op by op: bit for bit. A bottleneck's (`Bottleneck.forward`,
+    through `affine_f32`): the chain after a conv (BN and ReLU; after conv3
+    the shortcut's BN, the residual add and the ReLU) computed in f32 on the
+    bf16 values and rounded to bf16 once, where one XLA fusion rounds: bit
+    for bit JAX's FrozenBatchNorm and ReLU in f32 on the same values,
+    rounded to bf16 once."""
     rng = np.random.default_rng(1)
-    x = rng.normal(size=(2, 4, 5, 64)).astype(np.float32)
-    scale, bias = rng.normal(size=64).astype(np.float32), rng.normal(size=64).astype(np.float32)
+    x, r = (rng.normal(size=(2, 4, 5, 64)).astype(np.float32) for _ in range(2))
+    (scale, bias), (scale2, bias2) = ((rng.normal(size=64).astype(np.float32) for _ in range(2)) for _ in range(2))
     want = jax_resnet.FrozenBatchNorm().apply({"params": {"scale": scale, "bias": bias}}, jnp.asarray(x, jnp.bfloat16))
-    bn = torch_resnet.FrozenBatchNorm(64)
+    bn, bn2 = torch_resnet.FrozenBatchNorm(64), torch_resnet.FrozenBatchNorm(64)
     bn.load_state_dict({"scale": torch.from_numpy(scale), "bias": torch.from_numpy(bias)})
+    bn2.load_state_dict({"scale": torch.from_numpy(scale2), "bias": torch.from_numpy(bias2)})
+
+    def nchw(a):
+        return torch.from_numpy(a).bfloat16().permute(0, 3, 1, 2)
+
+    def nhwc(t):
+        assert t.dtype == torch.bfloat16
+        return t.permute(0, 2, 3, 1).float().numpy()
+
     with torch.inference_mode():
-        got = bn(torch.from_numpy(x).bfloat16().permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-    assert got.dtype == torch.bfloat16
-    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+        got = nhwc(bn(nchw(x)))
+        got_chain = nhwc(torch.relu(bn.affine_f32(nchw(x))).bfloat16())
+        got_tail = nhwc(torch.relu(bn.affine_f32(nchw(x)) + bn2.affine_f32(nchw(r))).bfloat16())
+    np.testing.assert_array_equal(got, np.asarray(want, np.float32))
+
+    def jax_f32(a, sc, bi):
+        a16 = np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)  # the bf16 values the port sees
+        return jax_resnet.FrozenBatchNorm().apply({"params": {"scale": sc, "bias": bi}}, jnp.asarray(a16))
+
+    want_chain = jnp.maximum(jax_f32(x, scale, bias), 0.0).astype(jnp.bfloat16)
+    want_tail = jnp.maximum(jax_f32(x, scale, bias) + jax_f32(r, scale2, bias2), 0.0).astype(jnp.bfloat16)
+    np.testing.assert_array_equal(got_chain, np.asarray(want_chain, np.float32))
+    np.testing.assert_array_equal(got_tail, np.asarray(want_tail, np.float32))
+    # The two rules part: rounding once is not rounding op by op.
+    assert not np.array_equal(got_chain, np.maximum(got, 0.0))
 
 
 def jax_features_and_rpn(jax_model, params, images):

@@ -1,10 +1,12 @@
 """The port's VOC reader (`fasterrcnn_torch/data/voc.py`) and deferred decode
 (`data/pipeline.py`) against the JAX package's, on synthetic VOC trees.
 
-The JAX reader is held to its PIL path: with the native loader present it
-decodes with its own bilinear resize, which is not PIL's. So every test here
-patches `fasterrcnn_tpu.data.native_loader.available` to return False and
-builds the JAX Dataset with batch_decode=False. Images are sized so that
+Both readers are held to their PIL paths: with the native loader present
+each decodes with its own bilinear resize, which is not PIL's. So every test
+here patches `fasterrcnn_tpu.data.native_loader.available` and the port's
+`fasterrcnn_torch.data.native_loader.available` to return False and builds
+the JAX Dataset with batch_decode=False (`tests/test_torch_native_loader.py`
+holds the two native readers to each other). Images are sized so that
 every one lands in the 128x160 or 160x128 canvas.
 
 Tolerance: none. The order, the flips, the extents, the gt boxes (class and
@@ -21,7 +23,7 @@ from fasterrcnn_tpu.data import native_loader as jax_native_loader
 from fasterrcnn_tpu.data import synthetic_voc as jax_synthetic_voc
 from fasterrcnn_tpu.data import voc as jax_voc
 from fasterrcnn_torch.config import select_canvas
-from fasterrcnn_torch.data import synthetic_voc, voc
+from fasterrcnn_torch.data import native_loader, synthetic_voc, voc
 from fasterrcnn_torch.data.pipeline import batched, make_host_batch
 
 MAX_GT = 8
@@ -31,6 +33,7 @@ SIZES = dict(min_dimension_pixels=120, max_dimension_pixels=160)
 @pytest.fixture(autouse=True)
 def jax_reader_on_pil(monkeypatch):
     monkeypatch.setattr(jax_native_loader, "available", lambda: False)
+    monkeypatch.setattr(native_loader, "available", lambda: False)
 
 
 @pytest.fixture(scope="module")
