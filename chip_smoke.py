@@ -141,6 +141,21 @@ result line):
      ranks and one rank); each rank's K1-K3 launches, set to 0 before, must
      rise; the backend, the one-rank step as one graph and split as the
      ranks run it, the ranks' step with and without the all-reduce, in ms.
+  6t. tensor parallelism (`parallel/tp.py`, `Engine(mesh=...)` on a tp
+     mesh): ranks sharing cuda:0 over gloo, against one rank in this
+     process from the same seeds, B=4, f32 with TF32 off. dp=1 x tp=2 (phase
+     6d's two ranks, re-grouped after their dp run) for ModelConfig() and
+     ResNet-101 (train_all): step 0's losses
+     within 1e-4; a teacher-forced step's losses within 1e-4 and updates
+     within 3e-3 in relative norm; the replicated tensors identical bit for
+     bit on both ranks, the gathered states equal and each rank's tensors
+     their shards; `Engine.predict` (score threshold 0) with the same valid
+     slots as one rank's, the largest gaps printed; `Engine.evaluate` over
+     phase 6c's tree with the mAP of one rank on every rank; a bf16
+     predict's gap to one rank's printed; the packed step's ms with and
+     without the tp collectives. dp=2 x tp=2 (four ranks), VGG-16: the
+     teacher-forced step and the mAP. Every rank's K1-K3 launches must
+     rise.
   7. timing (VGG-16 and ResNet-101, each after its paths): Engine.predict
      and Engine.train_step on the host's batch, ms
      per batch and img/s (f32 with TF32 off, f32 with cuDNN TF32 on, bf16),
@@ -159,6 +174,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -1519,12 +1535,7 @@ def train_rows(engine, samples, b, k):
 
 
 def state_digest(model) -> str:
-    import hashlib
-
-    digest = hashlib.sha256()
-    for name, t in model.state_dict().items():
-        digest.update(name.encode() + t.detach().cpu().contiguous().numpy().tobytes())
-    return digest.hexdigest()
+    return state_digest_of(model.state_dict())
 
 
 def split_steps(step, images, aux, dens):
@@ -1612,7 +1623,22 @@ def update_gap(after, want_after, before, labels):
     return worst, worst_name
 
 
-def phase_data_parallel(counters, card, voc_root, k=8, b=4, seed=7):
+def dp_then_tp_rank(mesh, dp_args, tp_args):
+    """The two ranks of phases 6d and 6t in one process group (a spawn
+    costs each rank its start, ~20-35 s on a shared card): phase 6d's run
+    (`dp_rank`) on dp=2 x tp=1, then the same ranks re-grouped as dp=1 x
+    tp=2 (`mesh.regroup`) for phase 6t's (`tp_rank`)."""
+    import torch
+    from fasterrcnn_torch.parallel import mesh as mesh_lib
+
+    t0 = time.perf_counter()
+    dp_out = dp_rank(mesh, *dp_args)
+    dp_out["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return dp_out, tp_rank(mesh_lib.regroup(mesh, 2), *tp_args)
+
+
+def phase_data_parallel(counters, card, voc_root, tp_args, k=8, b=4, seed=7):
     """Phase 6d: data parallelism, two ranks sharing cuda:0 over gloo (NCCL
     refuses two ranks on one card; the phase checks correctness, not
     scaling), against one rank in this process, from the same seeds:
@@ -1641,7 +1667,9 @@ def phase_data_parallel(counters, card, voc_root, k=8, b=4, seed=7):
     Prints the backend, the one-rank K-step graph's and the ranks' warm ms
     a step, the ranks' without the all-reduce (the ms it adds), and one
     rank's step split as the ranks run it (the gradient and the update
-    programs, no all-reduce)."""
+    programs, no all-reduce). The same two ranks then run phase 6t's
+    dp=1 x tp=2 work (`dp_then_tp_rank`, `tp_rank` on `tp_args`), whose
+    per-rank results are returned third."""
     import torch
     from fasterrcnn_torch.config import ModelConfig
     from fasterrcnn_torch.data import voc
@@ -1700,9 +1728,11 @@ def phase_data_parallel(counters, card, voc_root, k=8, b=4, seed=7):
         mesh = mesh_lib.make_mesh(2, devices=["cuda:0"] * 2)
         print(f"Device mesh : dp={mesh.dp} x tp={mesh.tp}, backend={mesh.backend} (two ranks on cuda:0)", flush=True)
         t0 = time.perf_counter()
-        ranks = mesh_lib.spawn(dp_rank, mesh, args=(k, b, seed, start, trained, voc_root, tmp), timeout=900,
-                               collective_timeout=300)
-        print(f"dp=2: the ranks ran in {time.perf_counter() - t0:.1f} s", flush=True)
+        dp_args = (k, b, seed, start, trained, voc_root, tmp)
+        ranks, tp_ranks = zip(*mesh_lib.spawn(dp_then_tp_rank, mesh, args=(dp_args, tp_args), timeout=1200,
+                                              collective_timeout=300))
+        print(f"dp=2, then dp=1 x tp=2 (phase 6t): the ranks ran in {time.perf_counter() - t0:.1f} s (the dp=2 "
+              f"run {ranks[0]['seconds']:.1f} s of it)", flush=True)
         dp_block, dp_forced = (torch.load(os.path.join(tmp, name), weights_only=True)
                                for name in ("dp_block.pth", "dp_forced.pth"))
         initial = torch.load(start, weights_only=True)
@@ -1751,6 +1781,352 @@ def phase_data_parallel(counters, card, voc_root, k=8, b=4, seed=7):
     check(forced_gap <= 1e-4, f"dp=2 teacher-forced losses part from dp=1's by {forced_gap} relative")
     check(forced_update <= 3e-3, f"dp=2 teacher-forced updates part from dp=1's by {forced_update} ({forced_tensor})")
     check(one_map > 0.0 and maps == [one_map] * 2, f"dp=2 mAP {maps}, dp=1 {one_map}")
+    return result, launches, tp_ranks
+
+
+# Phase 6t's configurations: name -> ModelConfig keyword arguments. Every
+# engine of the phase, the train_all ones too, starts from the seed-0
+# weights of its configuration without train_all (`<name>_predict.pth`):
+# train_all's init closes every bottleneck's residual branch (bn3's scale
+# 0), so layer4's sharded conv1/bn1/conv2 would add nothing to the forward
+# pass and get no gradient, and the tp split would go unchecked.
+TP_CASES = {"vgg16": {}, "resnet101": {"backbone": "resnet101", "train_all": True}}
+# Phase 6t's predict and eval score threshold: every proposal scores, so
+# the seeded weights of either configuration give detections and an mAP
+# above 0 to compare.
+TP_THRESHOLD = 0.0
+
+
+def tp_config(name, dtype="float32"):
+    from fasterrcnn_torch.config import ModelConfig
+
+    return ModelConfig(compute_dtype=dtype, **TP_CASES[name])
+
+
+def split_digests(state):
+    """(digest of the replicated tensors, digest of the tp-sharded ones)."""
+    import hashlib
+
+    from fasterrcnn_torch.parallel.mesh import param_spec
+
+    digests = []
+    for replicated in (True, False):
+        h = hashlib.sha256()
+        for name, t in state.items():
+            if (param_spec(name) is None) == replicated:
+                h.update(name.encode() + t.detach().cpu().contiguous().numpy().tobytes())
+        digests.append(h.hexdigest())
+    return tuple(digests)
+
+
+def packed_arrays(samples, b, max_gt, device):
+    """One packed step's images, aux and denominator on `device`, from the
+    first b samples on the 608x800 canvas."""
+    import torch
+
+    images, aux, dens = block_arrays(samples, 1, b, max_gt)
+    return tuple(torch.as_tensor(a[0], device=device) for a in (images, aux, dens))
+
+
+def tp_rank(mesh, names, b, seed, images, image_hw, voc_root, out_dir, timed):
+    """One rank of phase 6t, in a process of its own, TF32 off. For each
+    configuration of `names` (TP_CASES), `Engine(mesh=...)` with the
+    weights `<name>_predict.pth`: step 0, one packed step on the b samples
+    of `seed` (K1-K3 counted from 0); the warm packed step's ms with and
+    without the tp collectives (when `timed`; the tp all-reduce made a
+    no-op for the second, so its numbers are thrown away); the weights
+    `<name>_predict.pth` loaded again, then
+    `Engine.predict` of `images` in f32 and, on an engine of bf16 compute,
+    in bf16, and `Engine.evaluate` over the VOC tree's split "test" (K1, K2
+    counted from 0); the teacher-forced step: the weights `<name>_trained.pth`,
+    the sampling generator at seed 1, one packed step on b samples of
+    seed + 1. Returns the losses, the detections (rank 0), the mAP, the
+    launches, the digests of the replicated and the sharded tensors and of
+    the gathered state, and whether the gathered state shards back to this
+    rank's tensors; rank 0 writes the gathered state after the
+    teacher-forced step to `<name>_tp<tp>x<dp>_forced.pth` in out_dir."""
+    import torch
+    import torch.distributed as dist
+    from fasterrcnn_torch.data import voc
+    from fasterrcnn_torch.data.synthetic import SyntheticDataset
+    from fasterrcnn_torch.engine import Engine
+    from fasterrcnn_torch.parallel import mesh as mesh_lib
+    from fasterrcnn_torch.parallel import tp as tp_lib
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = kernel_counters()
+    samples = list(SyntheticDataset(num_samples=b, seed=seed))
+    barrier = lambda: dist.barrier(group=mesh.group)  # noqa: E731
+    t0 = time.perf_counter()
+
+    def stage(what):
+        if mesh.is_main:
+            print(f"  dp={mesh.dp} x tp={mesh.tp} rank 0, {time.perf_counter() - t0:.1f} s: {what}", flush=True)
+
+    results = {}
+    for name in names:
+        out = results[name] = {}
+        engine = Engine(tp_config(name), seed=0, mesh=mesh)
+        predict_weights = os.path.join(out_dir, f"{name}_predict.pth")
+        engine.load_weights(predict_weights)
+        stage(f"{name} engine built")
+        for fn in counters:
+            fn.launches = 0
+        out["step0_rows"] = train_rows(engine, samples, b, 1)
+        out["train_launches"] = {fn.__name__: fn.launches for fn in counters}
+        stage(f"{name} step 0")
+        if timed:
+            images_s, aux_s, dens = packed_arrays(samples, b, engine.model_cfg.max_gt_boxes, mesh.device)
+            step = engine.dp_step_for((608, 800))
+            rows = mesh.rows(b)
+            run = lambda: step.packed(images_s[rows], aux_s[rows], dens)  # noqa: E731
+            out["step_ms"] = timed_ms(run, 3, barrier)
+            real = tp_lib._all_reduce
+            tp_lib._all_reduce = lambda t, group: None
+            try:
+                out["no_tp_collectives_ms"] = timed_ms(run, 3, barrier)
+            finally:
+                tp_lib._all_reduce = real
+            del step, images_s, aux_s, dens
+        engine.load_weights(predict_weights)
+        det = engine.predict(images, image_hw, score_threshold=TP_THRESHOLD)
+        out["detections"] = tuple(t.cpu().numpy() for t in det) if mesh.is_main else None
+        for fn in counters:
+            fn.launches = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            out["map"] = engine.evaluate(voc.Dataset("test", dir=voc_root, augment=False, shuffle=False, cache=False),
+                                         batch_size=4, score_threshold=TP_THRESHOLD, progress=False)
+        torch.cuda.synchronize()
+        out["eval_launches"] = {fn.__name__: fn.launches for fn in counters}
+        stage(f"{name} timed, predicted and evaluated")
+        engine.load_weights(os.path.join(out_dir, f"{name}_trained.pth"))
+        engine.generator.manual_seed(1)
+        for fn in counters:
+            fn.launches = 0
+        out["forced_rows"] = train_rows(engine, list(SyntheticDataset(num_samples=b, seed=seed + 1)), b, 1)
+        out["forced_launches"] = {fn.__name__: fn.launches for fn in counters}
+        held = engine.model.state_dict()
+        full = engine.full_state_dict()
+        out["digests"] = split_digests(held)
+        out["full_digest"] = state_digest_of(full)
+        out["shards_match"] = all(torch.equal(a, held[k]) for k, a in mesh_lib.shard_state_dict(mesh, full).items())
+        if mesh.is_main:
+            torch.save({n: t.detach().cpu() for n, t in full.items()},
+                       os.path.join(out_dir, f"{name}_tp{mesh.tp}x{mesh.dp}_forced.pth"))
+        del engine, held, full
+        torch.cuda.empty_cache()
+        stage(f"{name} teacher-forced step, gathered")
+        if mesh.dp == 1:
+            engine16 = Engine(tp_config(name, "bfloat16"), seed=0, mesh=mesh)
+            engine16.load_weights(predict_weights)
+            det16 = engine16.predict(images, image_hw, score_threshold=TP_THRESHOLD)
+            out["detections_bf16"] = tuple(t.cpu().numpy() for t in det16) if mesh.is_main else None
+            del engine16
+            torch.cuda.empty_cache()
+            stage(f"{name} bf16 predict")
+    return results
+
+
+def state_digest_of(state) -> str:
+    import hashlib
+
+    digest = hashlib.sha256()
+    for name, t in state.items():
+        digest.update(name.encode() + t.detach().cpu().contiguous().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def detection_gap(got, want):
+    """(valid slots that differ, largest score gap over the slots valid in
+    both, largest distance of a valid box to the nearest valid box of its
+    image and class in `want`, and the slots valid in both) of two (boxes,
+    scores, valid) triples. The box gap is printed, not checked: at score
+    threshold 0 a class holds hundreds of boxes whose near-tied scores
+    trade slots (and so which box of a near-tied pair NMS keeps), so slot
+    by slot it reads hundreds of pixels, and the nearest box is a weak
+    test."""
+    (boxes, scores, valid), (wboxes, wscores, wvalid) = got, want
+    both = (valid > 0) & (wvalid > 0)
+    box_gap = 0.0
+    for i, c in zip(*np.nonzero((valid > 0).any(axis=-1))):
+        g, w = boxes[i, c][valid[i, c] > 0], wboxes[i, c][wvalid[i, c] > 0]
+        if len(w):
+            box_gap = max(box_gap, float(np.abs(g[:, None] - w[None]).max(axis=-1).min(axis=1).max()))
+    return (int(((valid > 0) != (wvalid > 0)).sum()), float(np.abs(scores - wscores)[both].max(initial=0.0)),
+            box_gap, int(both.sum()))
+
+
+def tp_references(voc_root, tmp, b=4, seed=7) -> dict:
+    """Phase 6t's one-rank side, in this process: for each configuration of
+    TP_CASES, the seed-0 weights of its configuration without train_all
+    (`<name>_predict.pth`) and the weights after step 0 from them
+    (`<name>_trained.pth`) in `tmp`; the mAP, the f32 and bf16 detections
+    of phase 5's images, step 0's losses, the packed step's ms and the
+    teacher-forced step's losses and parameters. Returns them with the
+    ranks' inputs."""
+    import torch
+    from fasterrcnn_torch.data import voc
+    from fasterrcnn_torch.data.synthetic import SyntheticDataset
+    from fasterrcnn_torch.engine import Engine
+
+    samples = list(SyntheticDataset(num_samples=b, seed=seed))
+    forced_batch = list(SyntheticDataset(num_samples=b, seed=seed + 1))
+    images, image_hw = main_path_images(np.random.default_rng(5), MAIN_EXTENTS, (608, 800))
+    one = {}
+    for name in TP_CASES:
+        ref = one[name] = {}
+        engine = Engine(tp_config(name), seed=0)
+        ref["labels"] = dict(engine.labels)
+        predict_weights = os.path.join(tmp, f"{name}_predict.pth")
+        if engine.model_cfg.train_all:
+            Engine(dataclasses.replace(tp_config(name), train_all=False), seed=0).save_weights(predict_weights)
+            torch.cuda.empty_cache()
+        else:
+            engine.save_weights(predict_weights)
+        engine.load_weights(predict_weights)
+        with contextlib.redirect_stdout(io.StringIO()):
+            ref["map"] = engine.evaluate(voc.Dataset("test", dir=voc_root, augment=False, shuffle=False,
+                                                     cache=False), batch_size=4, score_threshold=TP_THRESHOLD,
+                                         progress=False)
+        ref["detections"] = tuple(t.cpu().numpy()
+                                  for t in engine.predict(images, image_hw, score_threshold=TP_THRESHOLD))
+        ref["step0_rows"] = train_rows(engine, samples, b, 1)
+        trained = os.path.join(tmp, f"{name}_trained.pth")
+        engine.save_weights(trained)
+        images_s, aux_s, _ = packed_arrays(samples, b, engine.model_cfg.max_gt_boxes, "cuda")
+        ref["step_ms"] = timed_ms(lambda: engine.packed_step_for((608, 800))(images_s, aux_s), 3)
+        del images_s, aux_s
+        engine.load_weights(trained)
+        ref["before"] = {n: p.detach().cpu().clone() for n, p in engine.model.named_parameters()}
+        engine.generator.manual_seed(1)
+        ref["forced_rows"] = train_rows(engine, forced_batch, b, 1)
+        ref["forced"] = {n: p.detach().cpu().clone() for n, p in engine.model.named_parameters()}
+        del engine
+        torch.cuda.empty_cache()
+        engine16 = Engine(tp_config(name, "bfloat16"), seed=0)
+        engine16.load_weights(predict_weights)
+        ref["detections_bf16"] = tuple(t.cpu().numpy()
+                                       for t in engine16.predict(images, image_hw, score_threshold=TP_THRESHOLD))
+        del engine16
+        torch.cuda.empty_cache()
+    return dict(one=one, images=images, image_hw=image_hw, voc_root=voc_root, tmp=tmp, b=b, seed=seed)
+
+
+def tp_rank_args(ref, names, timed):
+    """The arguments of `tp_rank` after its mesh."""
+    return (names, ref["b"], ref["seed"], ref["images"], ref["image_hw"], ref["voc_root"], ref["tmp"], timed)
+
+
+def phase_tensor_parallel(card, refs, pair_ranks):
+    """Phase 6t: tensor parallelism, ranks sharing cuda:0 over gloo (NCCL
+    refuses two ranks on one card; the phase checks correctness, not
+    scaling), against one rank in this process from the same seeds, f32
+    with TF32 off, B=4 on the 608x800 canvas:
+      * dp=1 x tp=2 (two ranks), ModelConfig() (VGG-16) and ResNet-101 in
+        from-scratch mode (train_all): step 0's losses within 1e-4 of one
+        rank's, relative; a teacher-forced step (the one-rank run's weights
+        after its step 0, the sampling generator at seed 1, a packed step on
+        another batch): losses within 1e-4, each trained tensor's update
+        within 3e-3 in relative norm, as phase 6d, and the tp-sharded
+        tensors' (VGG-16's fc pair, layer4's conv1/bn1/conv2) reported
+        apart, each moved by the step; the replicated tensors
+        identical bit for bit on both ranks, the gathered states equal, and
+        each rank's tensors the shards of the gathered state;
+        `Engine.predict` of phase 5's images (score threshold 0, so that
+        either model's seeded weights give detections): the same valid
+        slots as one rank's and scores within 1e-4, the largest score and
+        box gaps printed (the box gap not checked: `detection_gap`);
+        `Engine.evaluate` of the seed-0 weights over phase 6c's VOC tree:
+        the mAP equal on both ranks and on one rank; a bf16 predict, its gap
+        to one rank's bf16 predict printed; the packed step's warm ms with
+        and without the tp collectives (every engine of the phase starts
+        from its configuration's seed-0 weights without train_all:
+        TP_CASES);
+      * dp=2 x tp=2 (four ranks), VGG-16: the teacher-forced step and the
+        mAP as above, the four ranks' replicated tensors alike;
+      * every rank launched K1-K3 in its steps and K1 and K2 in its eval.
+    `refs` is `tp_references`' one-rank side; the dp=1 x tp=2 ranks ran on
+    phase 6d's two processes (`dp_then_tp_rank`), `pair_ranks` their
+    results; the four ranks are spawned here.
+    """
+    import torch
+    from fasterrcnn_torch.parallel import mesh as mesh_lib
+    from fasterrcnn_torch.parallel.mesh import param_spec
+
+    required = ("nms_keep_mask", "roi_pool_taps", "roi_pool_taps_bwd")
+    one, tmp, b = refs["one"], refs["tmp"], refs["b"]
+    launches, result = {}, {}
+    mesh4 = mesh_lib.make_mesh(4, tp=2, devices=["cuda:0"] * 4)
+    print(f"Device mesh : dp={mesh4.dp} x tp={mesh4.tp}, backend={mesh4.backend} ({mesh4.size} ranks on cuda:0)",
+          flush=True)
+    t0 = time.perf_counter()
+    ranks4 = mesh_lib.spawn(tp_rank, mesh4, args=tp_rank_args(refs, ("vgg16",), False), timeout=900,
+                            collective_timeout=300)
+    print(f"dp=2 x tp=2: the ranks ran in {time.perf_counter() - t0:.1f} s", flush=True)
+    runs = {(1, 2): (mesh_lib.make_mesh(2, tp=2, devices=["cuda:0"] * 2), tuple(TP_CASES), pair_ranks),
+            (2, 2): (mesh4, ("vgg16",), ranks4)}
+    for (dp, tp), (mesh, names, ranks) in runs.items():
+        check(mesh.backend == "gloo", f"tp on one card: backend {mesh.backend}")
+        for name in names:
+            want, tag = one[name], f"dp{dp}xtp{tp}_{name}"
+            outs = [r[name] for r in ranks]
+            forced = torch.load(os.path.join(tmp, f"{name}_tp{tp}x{dp}_forced.pth"), weights_only=True)
+            for r, out in enumerate(outs):
+                launches[f"{tag}_rank{r}_train"] = check_launches(
+                    {k: out["train_launches"][k] + out["forced_launches"][k] for k in out["train_launches"]},
+                    required, f"{tag} rank {r} train steps")
+                launches[f"{tag}_rank{r}_eval"] = check_launches(out["eval_launches"], required[:2],
+                                                                 f"{tag} rank {r} eval")
+            check(len({out["digests"][0] for out in outs}) == 1, f"{tag}: the replicated tensors differ")
+            check(len({out["digests"][1] for out in outs[:tp]}) == tp, f"{tag}: the ranks' shards are alike")
+            check(len({out["full_digest"] for out in outs}) == 1 and outs[0]["full_digest"] == state_digest_of(
+                forced), f"{tag}: the gathered states differ")
+            check(all(out["shards_match"] for out in outs), f"{tag}: a rank's tensors are not its shards")
+            check(all(np.array_equal(out["forced_rows"], outs[0]["forced_rows"]) for out in outs),
+                  f"{tag}: the ranks' losses differ")
+
+            def rel(a, want):
+                return float((np.abs(a - want) / np.abs(want)).max())
+
+            forced_update, forced_tensor = update_gap(forced, want["forced"], want["before"], want["labels"])
+            sharded = {n: label for n, label in want["labels"].items() if param_spec(n) is not None}
+            sharded_update, sharded_tensor = update_gap(forced, want["forced"], want["before"], sharded)
+            sharded_moved = all((want["forced"][n] - want["before"][n]).any() for n in sharded)
+            res = result[tag] = {
+                "ranks": mesh.size, "backend": mesh.backend, "batch": b,
+                "forced_loss_gap_rel": rel(outs[0]["forced_rows"], want["forced_rows"]),
+                "forced_update_gap_rel_norm": forced_update, "forced_update_gap_tensor": forced_tensor,
+                "forced_sharded_update_gap_rel_norm": sharded_update, "forced_sharded_update_gap_tensor": sharded_tensor,
+                "map_one_rank": want["map"], "map_ranks": [out["map"] for out in outs],
+                "step0_loss_gap_rel": rel(outs[0]["step0_rows"], want["step0_rows"]),
+            }
+            if dp == 1:
+                gap = detection_gap(outs[0]["detections"], want["detections"])
+                gap16 = detection_gap(outs[0]["detections_bf16"], want["detections_bf16"])
+                res.update({
+                    "predict_f32_gap": dict(zip(("valid_slots_differ", "max_score_gap", "max_box_gap_px",
+                                                 "slots_compared"), gap)),
+                    "predict_bf16_gap": dict(zip(("valid_slots_differ", "max_score_gap", "max_box_gap_px",
+                                                  "slots_compared"), gap16)),
+                    "one_rank_step_ms": want["step_ms"], "step_ms": [out["step_ms"] for out in outs],
+                    "step_ms_without_tp_collectives": [out["no_tp_collectives_ms"] for out in outs],
+                    "tp_collectives_ms": [out["step_ms"] - out["no_tp_collectives_ms"] for out in outs],
+                })
+            print(f"{tag} against one rank (B={b}): {json.dumps(res)} [{card}]", flush=True)
+            check(res["step0_loss_gap_rel"] <= 1e-4, f"{tag}: step 0 losses part by {res['step0_loss_gap_rel']}")
+            check(res["forced_loss_gap_rel"] <= 1e-4,
+                  f"{tag}: teacher-forced losses part by {res['forced_loss_gap_rel']}")
+            check(forced_update <= 3e-3, f"{tag}: teacher-forced updates part by {forced_update} ({forced_tensor})")
+            check(len(sharded) == (3 if name == "vgg16" else 12) and sharded_moved and sharded_update <= 3e-3,
+                  f"{tag}: teacher-forced updates of the {len(sharded)} tp-sharded tensors part by {sharded_update} "
+                  f"({sharded_tensor})")
+            check(want["map"] > 0.0 and res["map_ranks"] == [want["map"]] * mesh.size,
+                  f"{tag}: mAP {res['map_ranks']}, one rank {want['map']}")
+            if dp == 1:
+                check(gap[0] == 0 and gap[3] > 0 and gap[1] <= 1e-4,
+                      f"{tag}: f32 predict parts from one rank's: {res['predict_f32_gap']}")
+    print(json.dumps({"tensor_parallel": result, "card": card}), flush=True)
     return result, launches
 
 
@@ -2080,7 +2456,11 @@ def main() -> None:
         root = write_voc_tree(tmp)
         cli_train_launches, eval_launches, cli_resnet_launches, cli_exact_launches, _ = phase_eval_cli(
             counters, card, tmp, root)
-        _, dp_launches = phase_data_parallel(counters, card, root)
+        # Phase 6t's dp=1 x tp=2 runs on phase 6d's two ranks, after theirs.
+        tp_ref = tp_references(root, tmp)
+        _, dp_launches, pair_ranks = phase_data_parallel(counters, card, root,
+                                                         tp_rank_args(tp_ref, tuple(TP_CASES), True))
+        _, tp_launches = phase_tensor_parallel(card, tp_ref, pair_ranks)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     paths = {"predict": launches, "train": train_launches, "fused_roi_op": fused_launches,
@@ -2088,7 +2468,7 @@ def main() -> None:
              "resnet101_predict": r_launches, "resnet101_train": r_train_launches, **other_launches,
              "cli_resnet101_eval": cli_resnet_launches, **exact_launches, **overfit_launches,
              "cli_exact_pool_eval": cli_exact_launches, **loop_launches, "cli_diagnostics": cli_diag_launches,
-             "bench": bench_launches, **dp_launches, "parity": parity_launches}
+             "bench": bench_launches, **dp_launches, **tp_launches, "parity": parity_launches}
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}

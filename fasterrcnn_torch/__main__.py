@@ -13,11 +13,15 @@ raises at the first NaN (autograd anomaly mode; the train loop then runs
 uncaptured, and says so), --profile-dir writes a torch.profiler trace of the
 first epoch's steps.
 
---num-devices N above 1 runs N data-parallel ranks, one process each
-(`parallel/mesh.py`): on every CUDA device, one a rank, over nccl, or with
---device cpu on N CPU ranks over gloo. Rank 0 alone prints and writes
-files (weights, checkpoints, the CSV, traces, predictions). --tp above 1
-raises NotImplementedError naming its ROADMAP item (A16, the tp slice).
+--num-devices N above 1 runs N ranks, one process each, on a (dp, tp) mesh
+of N / T rows of --tp T ranks (`parallel/mesh.py`, JAX's grid): on the
+first N CUDA devices, one a rank, over nccl, or with --device cpu on N CPU
+ranks over gloo. --tp T above 1 shards the detector head across each row
+(`parallel/tp.py`); without --num-devices it takes every CUDA device, as
+the JAX CLI does, or T CPU ranks with --device cpu. Rank 0 alone prints
+and writes files (weights, checkpoints, the CSV, traces, predictions);
+--predict, --predict-to-file and --predict-all run on rank 0's tp row,
+which holds one model between its ranks.
 """
 
 from __future__ import annotations
@@ -132,26 +136,17 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Write a torch.profiler trace of the first "
                              "epoch's training steps into this directory")
     parser.add_argument("--num-devices", metavar="n", type=int, default=0,
-                        help="Data parallelism over n ranks, one process each "
-                             "(0 or 1 = one device): the first n CUDA devices "
-                             "over nccl, or n CPU ranks over gloo with --device "
-                             "cpu. Batch sizes must divide by n")
+                        help="Shard work over n ranks, one process each, of a "
+                             "(dp, tp) mesh (0 or 1 = one device): the first n "
+                             "CUDA devices over nccl, or n CPU ranks over gloo "
+                             "with --device cpu. Batch sizes must divide by n/tp")
     parser.add_argument("--tp", metavar="n", type=int, default=1,
-                        help="Tensor-parallel extent (above 1 not ported yet, "
-                             "ROADMAP A16, the tp slice)")
+                        help="Tensor-parallel extent of the mesh (megatron "
+                             "split of the detector fc pair, or of ResNet's "
+                             "layer4); must divide --num-devices")
     parser.add_argument("--device", metavar="name", default="cuda",
                         help="Torch device to run on: cuda (default) or cpu")
     return parser
-
-
-def check_ported(options) -> None:
-    """Raise NotImplementedError for a flag whose feature is not ported."""
-    waiting = [
-        (options.tp > 1, "--tp > 1", "A16, the tp slice"),
-    ]
-    for asked, flag, item in waiting:
-        if asked:
-            raise NotImplementedError(f"{flag} is not ported to fasterrcnn_torch yet (ROADMAP {item})")
 
 
 def make_datasets(options):
@@ -188,8 +183,7 @@ def make_datasets(options):
 
 def main(argv=None):
     options = build_parser().parse_args(argv)
-    check_ported(options)
-    if options.num_devices <= 1:
+    if options.num_devices <= 1 and options.tp <= 1:
         run(options)
         return
     import torch
@@ -197,8 +191,8 @@ def main(argv=None):
     from fasterrcnn_torch.parallel import mesh as mesh_lib
 
     cpu = torch.device(options.device).type == "cpu"
-    mesh = mesh_lib.make_mesh(options.num_devices, tp=options.tp,
-                              devices=["cpu"] * options.num_devices if cpu else None)
+    n = options.num_devices or (options.tp if cpu else None)
+    mesh = mesh_lib.make_mesh(n, tp=options.tp, devices=["cpu"] * n if cpu else None)
     print("Device mesh       : dp=%d x tp=%d, backend=%s" % (mesh.dp, mesh.tp, mesh.backend), flush=True)
     mesh_lib.spawn(run_rank, mesh, args=(options,))
 
@@ -274,10 +268,11 @@ def run(options, mesh=None):
         engine = Engine(model_cfg, train_cfg, seed=options.seed, mesh=mesh)
     if options.load_from:
         engine.load_weights(options.load_from)
-    # Predicting and rendering run on one device: on a mesh, on rank 0.
-    solo = engine.is_main
+    # Predicting runs on rank 0's tp row (one model between its ranks), and
+    # rank 0 alone renders.
+    row = mesh is None or mesh.dp_index == 0
 
-    if options.dump_anchors and solo:
+    if options.dump_anchors and engine.is_main:
         dump_anchors(engine, options)
 
     if options.train:
@@ -290,12 +285,12 @@ def run(options, mesh=None):
             print_average_precisions=True,
             plot=options.plot,
         )
-    elif options.predict and solo:
+    elif options.predict and row:
         predict_one(engine, options.predict, show_image=True, output_path=None)
-    elif options.predict_to_file and solo:
+    elif options.predict_to_file and row:
         predict_one(engine, options.predict_to_file, show_image=False,
                     output_path="predictions.png")
-    elif options.predict_all and solo:
+    elif options.predict_all and row:
         predict_all(engine, options)
     elif not (options.dump_anchors or options.predict or options.predict_to_file or options.predict_all):
         print("Nothing to do. Did you mean to use --train or --predict?")
@@ -380,8 +375,10 @@ def train(engine, options):
                 batch_size=options.eval_batch_size,
                 num_samples=options.periodic_eval_samples,
             )
+            # The full tensors: on a tp mesh every rank joins the gather.
+            state = engine.full_state_dict() if ckpt_mgr is not None or options.save_best_to else None
             if ckpt_mgr is not None and writes:
-                ckpt_mgr.save(epoch, engine.model, mean_ap)
+                ckpt_mgr.save(epoch, state, mean_ap)
             if csv:
                 log_items = {
                     "epoch": epoch,
@@ -394,7 +391,7 @@ def train(engine, options):
                 log_items.update(stats.get_progbar_postfix())
                 csv.log(log_items)
             if best:
-                best.on_epoch_end(engine.model, epoch, mean_ap)
+                best.on_epoch_end(state, epoch, mean_ap)
     if profiler is not None:  # no epoch ran
         profiler.__exit__(None, None, None)
     if options.save_to:
@@ -453,6 +450,8 @@ def predict_one(engine, url, show_image, output_path):
         filepath=url,
     )
     scored = engine.predict_image(sample, score_threshold=0.7)
+    if not engine.is_main:
+        return
     visualize.show_detections(
         image=pil_image,
         scored_boxes_by_class_index=scored,
@@ -468,11 +467,14 @@ def predict_all(engine, options):
 
     split = options.predict_all
     dirname = "predictions_" + split
-    os.makedirs(dirname, exist_ok=True)
+    if engine.is_main:
+        os.makedirs(dirname, exist_ok=True)
     print("Rendering predictions from '%s' set to '%s'..." % (split, dirname))
     dataset = Dataset(split=split, dir=options.dataset_dir, augment=False, shuffle=False)
     for sample in dataset:
         scored = engine.predict_image(sample, score_threshold=0.7)
+        if not engine.is_main:
+            continue
         base = os.path.splitext(os.path.basename(sample.filepath))[0]
         visualize.show_detections(
             image=sample.image,

@@ -14,17 +14,21 @@ dataset: packed single steps and K-step blocks, each one program (a CUDA
 graph on a card), with the uploads in the prefetch thread; `evaluate` runs
 predict over a dataset and returns the VOC mAP in percent.
 
-`Engine(..., mesh=...)` is one rank of a data-parallel mesh
-(`parallel/mesh.py`, the counterpart of the JAX package's
-`Engine(mesh=...)` on its dp axis): every method but `predict_image` is
-then a collective that each rank calls alike. Each rank holds the whole
-model on its device and takes its rows of every batch: `train_epoch` and
-`train_step` all-reduce the gradients (`models/faster_rcnn.
-DataParallelStep`), `predict` and `evaluate` all-gather the detections. The
-parameters start alike on every rank (the seeded init draws on the CPU);
-`load_weights` reads the file on every rank and `set_params` then
-broadcasts rank 0's tensors, so every rank holds rank 0's bits. Only rank
-0 prints and writes files (`save_weights`).
+`Engine(..., mesh=...)` is one rank of a (dp, tp) mesh (`parallel/mesh.py`,
+the counterpart of the JAX package's `Engine(mesh=...)`): every method is
+then a collective that each rank calls alike (`predict_image`: each rank
+of the caller's tp row). Each rank holds the model on its device, the
+tp-sharded parameters as this rank's shard (`parallel/tp.shard_model`), and
+takes its dp row's rows of every batch: `train_epoch` and `train_step`
+all-reduce the gradients over the dp group (`models/faster_rcnn.
+DataParallelStep`; the tp collectives run inside the model), `predict` and
+`evaluate` all-gather the detections over it. The parameters start alike
+on every rank (the seeded init draws the full model on the CPU, then each
+rank keeps its shard); `load_weights` reads the file on every rank and
+`set_params` then broadcasts rank 0's full tensors, so every rank holds
+its shard of rank 0's bits. `save_weights`, `full_state_dict` and so every
+checkpoint hold the full tensors, gathered over the tp group. Only rank 0
+prints and writes files.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fasterrcnn_torch.config import ModelConfig, TrainConfig, select_canvas
 from fasterrcnn_torch.data import pipeline
@@ -59,6 +64,7 @@ from fasterrcnn_torch.models.faster_rcnn import (
     snapshot_train_state,
 )
 from fasterrcnn_torch.parallel import mesh as mesh_lib
+from fasterrcnn_torch.parallel import tp as tp_lib
 from fasterrcnn_torch.utils import checkpoint as ckpt_lib
 from fasterrcnn_torch.utils import postprocess
 from fasterrcnn_torch.utils import profiling
@@ -117,6 +123,16 @@ class TrainOptimizer:
     f32 as a Python float given to a kernel is) and the moments. So a step
     reads no host value and runs alike eagerly and replayed from a CUDA
     graph. The moments are made, zero, before the first step.
+
+    On a tp mesh a group's global norm counts every parameter once:
+    `sharded` flags, per group, the parameters that hold a tp shard
+    (`tp_sharded`, set by `parallel/tp.shard_model`; their moments are
+    `zeros_like` of the shard, so they are sharded alike);
+    `reduce_tp_squares` sums their gradients' squares over the tp group into
+    `tp_squares`, one value a group, between the gradient and the update
+    programs, and `step` adds it to the replicated parameters' squares. So
+    the update holds no collective, and every rank clips by one device's
+    norm, up to the order of the sum.
     """
 
     def __init__(self, groups: List[Tuple[List[torch.nn.Parameter], float]], train_cfg: TrainConfig,
@@ -133,6 +149,8 @@ class TrainOptimizer:
         self.count = torch.zeros((), dtype=torch.int64, device=device)
         self.lr = self.lr_table[0].clone()  # the learning rate of the last step
         self._moments: Optional[List[List[List[torch.Tensor]]]] = None
+        self.sharded = [[getattr(p, "tp_sharded", False) for p in params] for params, _ in groups]
+        self.tp_squares = torch.zeros(len(groups), dtype=torch.float32, device=device)
 
     def _state(self) -> List[List[List[torch.Tensor]]]:
         """Per group, one list of zero tensors a parameter for each moment
@@ -152,6 +170,16 @@ class TrainOptimizer:
                 p.grad = None
 
     @torch.no_grad()
+    def reduce_tp_squares(self, group) -> None:
+        """`tp_squares`: per group, the sum of the squared gradients of its
+        tp-sharded parameters, summed over the tp `group` (a collective of
+        the tp group's ranks; run eagerly, before `step`)."""
+        for i, ((params, _), flags) in enumerate(zip(self.groups, self.sharded)):
+            squares = [(p.grad.float() ** 2).sum() for p, f in zip(params, flags) if f and p.grad is not None]
+            self.tp_squares[i] = sum(squares) if squares else 0.0
+        dist.all_reduce(self.tp_squares, group=group)
+
+    @torch.no_grad()
     def step(self) -> None:
         moments = self._state()
         index = torch.clamp(self.count, max=self.lr_table.numel() - 1).view(1)
@@ -161,14 +189,18 @@ class TrainOptimizer:
             b1, b2 = self.betas
             t = (self.count + 1).float()
             bc1, bc2 = 1.0 - b1 ** t, 1.0 - b2 ** t
-        for (params, weight_decay), state in zip(self.groups, moments):
+        for group, ((params, weight_decay), state, flags) in enumerate(zip(self.groups, moments, self.sharded)):
             live = [i for i, p in enumerate(params) if p.grad is not None]
             if not live:
                 continue
             ps = [params[i] for i in live]
             grads = [p.grad for p in ps]
             if self.clipnorm > 0:
-                norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+                squares = sum((p.grad.float() ** 2).sum() for p, f in zip(params, flags)
+                              if p.grad is not None and not f)
+                if any(flags):
+                    squares = squares + self.tp_squares[group]
+                norm = torch.sqrt(squares)
                 factor = torch.where(norm < self.clipnorm, 1.0, self.clipnorm / norm)
                 torch._foreach_mul_(grads, factor)
             if weight_decay > 0:
@@ -242,14 +274,15 @@ class Engine:
     """Holds the model on one device, its optimizer, the sampling generator
     and the per-canvas predict and train functions.
 
-    With a `mesh` of dp > 1 (`parallel/mesh.py`, joined by `spawn`) the
-    engine is that mesh's rank on its device (`device` is then left
-    unset). Sampling draws are the whole batch's on every rank (the
-    generator is seeded alike), so dp=N samples what one device samples.
+    With a `mesh` of more than one rank (`parallel/mesh.py`, joined by
+    `spawn`) the engine is that mesh's rank on its device (`device` is then
+    left unset). Sampling draws are the whole batch's on every rank (the
+    generator is seeded alike), so a mesh samples what one device samples.
     Dropout (`--dropout`, off by default) draws from the default
-    generators, which under dp are seeded per rank (`rank_seed`): each
-    rank draws its own masks, independent of the other ranks' rows, so
-    with dropout on dp=N does not draw one device's masks.
+    generators, which on a mesh are seeded per dp row (`rank_seed` of the
+    dp index): the ranks of a dp row draw the same masks (`models/vgg16.
+    VGG16Head`), each dp row its own, independent of the other rows, so
+    with dropout on dp=N does not draw one device's masks (tp=N does).
     """
 
     def __init__(
@@ -264,17 +297,18 @@ class Engine:
             if device is not None:
                 raise ValueError(f"device={device!r} with a mesh: a rank runs on its mesh device ({mesh.device})")
             device = mesh.device
-        self.mesh = mesh if mesh is not None and mesh.dp > 1 else None
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.device = resolve_device("cuda" if device is None else device)
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         model = FasterRCNN(model_cfg)
         init_params(model, seed)
         self.model = model.to(device=self.device, memory_format=torch.channels_last).eval()
+        tp_lib.shard_model(self.model, self.mesh)
         # Uniforms of the minibatch and proposal sampling, on the device.
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         if self.mesh is not None:
-            torch.manual_seed(rank_seed(seed, self.mesh.rank))
+            torch.manual_seed(rank_seed(seed, self.mesh.dp_index))
         self._predict_fns: Dict[Tuple[int, int], callable] = {}
         # One step index per batch trained on, across epochs (pack_aux).
         self._global_step = 0
@@ -304,21 +338,39 @@ class Engine:
     def set_params(self, state_dict) -> None:
         """Install a full state_dict (no missing or unexpected keys) and
         restart the optimizer, as the JAX package's Engine does. On a mesh,
-        rank 0's tensors are then broadcast to every rank."""
-        self.model.load_state_dict(state_dict)
-        if self.mesh is not None:
-            mesh_lib.broadcast_tensors(self.mesh, list(self.model.state_dict().values()))
+        rank 0's full tensors are first broadcast to every rank, then each
+        rank keeps its shard (`mesh_lib.shard_state_dict`)."""
+        if self.mesh is None:
+            self.model.load_state_dict(state_dict)
+        else:
+            full = {k: torch.as_tensor(v).to(self.device, copy=True) for k, v in state_dict.items()}
+            mesh_lib.broadcast_tensors(self.mesh, list(full.values()))
+            self.model.load_state_dict(mesh_lib.shard_state_dict(self.mesh, full))
         self._restart_optimizer()
+
+    def full_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's full state dict: on a tp mesh each sharded tensor
+        gathered over the tp group (a collective of every rank), else the
+        model's own."""
+        if self.mesh is None:
+            return self.model.state_dict()
+        return mesh_lib.gather_state_dict(self.mesh, self.model.state_dict())
 
     def load_weights(self, filepath: str) -> None:
         """Load any weight file `utils/checkpoint.load` reads; restarts the
-        optimizer. On a mesh every rank reads the file."""
-        self.set_params(ckpt_lib.load(self.model, filepath))
+        optimizer. On a mesh every rank reads the file. On a tp mesh the
+        model is gathered whole first (`full_state_dict`), as the JAX
+        package's `ckpt_lib.load(self.params)` reads its global arrays: a
+        partial file (a VGG-16 file without its classifier) keeps the current
+        values of what it lacks, fc1 and fc2 included."""
+        self.set_params(ckpt_lib.load(self.full_state_dict(), filepath))
 
     def save_weights(self, filepath: str) -> None:
-        """Write the port's .pth (on a mesh, rank 0 alone writes)."""
+        """Write the port's .pth of the full tensors (on a mesh every rank
+        joins the gather, and rank 0 alone writes)."""
+        state = self.full_state_dict()
         if self.is_main:
-            ckpt_lib.save_weights(filepath, self.model)
+            ckpt_lib.save_weights(filepath, state)
 
     def predict_fn_for(self, canvas_hw: Tuple[int, int]):
         canvas_hw = tuple(canvas_hw)
@@ -589,11 +641,11 @@ class Engine:
 
     @property
     def _shard(self) -> Tuple[int, int]:
-        """(rank, dp) of `pipeline.batched`."""
-        return (0, 1) if self.mesh is None else (self.mesh.rank, self.mesh.dp)
+        """(dp index, dp) of `pipeline.batched`."""
+        return (0, 1) if self.mesh is None else (self.mesh.dp_index, self.mesh.dp)
 
     def _predict_rows(self, images_u8, image_hw, score_threshold: float) -> Detections:
-        """Predict on this device alone."""
+        """Predict on this device, with the ranks of its tp row."""
         images = torch.as_tensor(images_u8, device=self.device)
         hw = torch.as_tensor(image_hw, dtype=torch.float32, device=self.device)
         predict = self.predict_fn_for(tuple(images.shape[1:3]))
@@ -601,16 +653,19 @@ class Engine:
 
     def predict(self, images_u8, image_hw, score_threshold: float = 0.05) -> Detections:
         """Padded canvas batch (B, H, W, 3) uint8 + real extents (B, 2). On a
-        mesh every rank passes the whole batch, predicts its rows and
-        returns the whole batch's detections (all-gathered)."""
+        mesh every rank passes the whole batch, its dp row predicts its rows
+        and every rank returns the whole batch's detections (all-gathered
+        over the dp group)."""
         if self.mesh is None:
             return self._predict_rows(images_u8, image_hw, score_threshold)
         det = self._predict_rows(self.mesh.shard_batch(images_u8), self.mesh.shard_batch(image_hw), score_threshold)
         return unpack_detections(mesh_lib.all_gather_rows(self.mesh, pack_detections(det)).to(self.device))
 
     def predict_image(self, sample: Sample, score_threshold: float = 0.7) -> Dict[int, np.ndarray]:
-        """Single-sample predict -> reference-style per-class dict (on this
-        device alone, also on a mesh)."""
+        """Single-sample predict -> reference-style per-class dict. On a mesh
+        a call that every rank of the caller's tp row joins, with the same
+        sample (the row holds one model between them); the other rows need
+        not call it."""
         hb = make_host_batch([sample], select_canvas(*sample.image_hw), self.model_cfg.max_gt_boxes)
         det = self._predict_rows(hb.images, hb.image_hw, score_threshold)
         return postprocess.detections_to_dicts(det)[0]
@@ -632,8 +687,8 @@ class Engine:
         reach the calculator.
 
         On a mesh every rank walks the same batches and stages and predicts
-        only its rows; the detections are all-gathered, rank 0 computes
-        the mAP and every rank returns it."""
+        only its dp row's rows; the detections are all-gathered over the dp
+        group, rank 0 computes the mAP and every rank returns it."""
         mesh_lib.check_batch_size(self.mesh, batch_size)
         calc = PrecisionRecallCurveCalculator()
         source = iter(dataset)
@@ -666,7 +721,7 @@ class Engine:
         # is a copy PyTorch ends with a stream synchronize, so it already
         # waits for the device to finish every batch before it.
         previous = None
-        # On a mesh a rank predicts its rows alone; finish gathers them.
+        # On a mesh a dp row predicts its rows; finish gathers them.
         predict_rows = self.predict if self.mesh is None else self._predict_rows
         try:
             for hb in batches:

@@ -35,6 +35,7 @@ from fasterrcnn_torch.ops import constants
 from fasterrcnn_torch.ops import nms as nms_ops
 from fasterrcnn_torch.ops import roi as roi_ops
 from fasterrcnn_torch.ops import sampling as sampling_ops
+from fasterrcnn_torch.parallel import tp
 
 
 class Batch(NamedTuple):
@@ -258,13 +259,14 @@ def draw_train_uniforms(cfg: ModelConfig, grid, batch_size: int, generator: torc
                         shard: Tuple[int, int] = (0, 1)) -> TrainDraws:
     """The uniforms of one train step, drawn from `generator` on `device`.
 
-    shard = (rank, dp): the step's batch is dp * batch_size images, of
-    which this rank holds rows rank * batch_size onwards. Every rank draws
-    the whole batch's uniforms from its generator (seeded alike on every
-    rank) and keeps its rows, so an image draws what it draws on one
-    device, as JAX's per-image keys split from the step's key."""
-    rank, dp = shard
-    rows = slice(rank * batch_size, (rank + 1) * batch_size)
+    shard = (dp index, dp): the step's batch is dp * batch_size images, of
+    which this rank's dp row holds rows dp_index * batch_size onwards.
+    Every rank draws the whole batch's uniforms from its generator (seeded
+    alike on every rank) and keeps its rows, so an image draws what it
+    draws on one device, as JAX's per-image keys split from the step's
+    key."""
+    index, dp = shard
+    rows = slice(index * batch_size, (index + 1) * batch_size)
     shapes = ((dp * batch_size, grid.total), (dp * batch_size, cfg.rpn.post_nms_train + cfg.max_gt_boxes))
     rpn, det = (
         tuple(torch.rand(shape, generator=generator, device=device)[rows] for _ in range(2)) for shape in shapes
@@ -289,8 +291,8 @@ def compute_losses(
     caps, and the sampled boxes are constants of the RoI stage, as in the
     JAX package (the reference detaches them).
 
-    Under data parallelism `batch` is one rank's rows of the step's batch
-    and shard = (rank, dp) (see `draw_train_uniforms`); `denominator` is
+    Under data parallelism `batch` is one dp row's rows of the step's batch
+    and shard = (dp index, dp) (see `draw_train_uniforms`); `denominator` is
     then the whole batch's sum of sample weights plus 1e-7 (a 0-d tensor the
     host computes), so that the ranks' losses, and their gradients, sum to
     those of the whole batch. By default it is this batch's own.
@@ -517,8 +519,11 @@ class CapturedStep:
 
     Runs eagerly on a CUDA device only where it must, and says so in
     `captured` (False): under autograd anomaly mode (`utils/profiling.
-    nan_guard`: its checks read values on the host) and for roi_mode
-    "exact_pool" (`ops/roi.roi_pool_exact` sizes its gathers from the data).
+    nan_guard`: its checks read values on the host), for roi_mode
+    "exact_pool" (`ops/roi.roi_pool_exact` sizes its gathers from the data)
+    and for a body that holds collectives (`collectives=True`: a CUDA
+    graph holds no gloo collective; `DataParallelStep`'s gradient part on a
+    tp mesh).
 
     `graphs` maps input shapes to their graph; `launches` maps each kernel
     of `LAUNCH_COUNTERS` to the launches one replay holds (added to the
@@ -528,8 +533,9 @@ class CapturedStep:
     """
 
     def __init__(self, body, model: FasterRCNN, optimizer, generator: Optional[torch.Generator] = None,
-                 pool=None, state: Tuple[torch.Tensor, ...] = ()):
+                 pool=None, state: Tuple[torch.Tensor, ...] = (), collectives: bool = False):
         self.body = body
+        self.collectives = collectives
         self.model = model
         self.optimizer = optimizer
         self.generator = generator
@@ -542,7 +548,7 @@ class CapturedStep:
 
     @property
     def captured(self) -> bool:
-        return self.model.cfg.roi_mode != "exact_pool" and not torch.is_anomaly_enabled()
+        return self.model.cfg.roi_mode != "exact_pool" and not self.collectives and not torch.is_anomaly_enabled()
 
     def __call__(self, *inputs: torch.Tensor) -> torch.Tensor:
         if self.device.type != "cuda" or not self.captured:
@@ -645,30 +651,44 @@ def make_train_step_scan(model: FasterRCNN, optimizer, canvas_h: int, canvas_w: 
 
 
 class DataParallelStep:
-    """One optimizer step of a data-parallel rank, on its rows of the step's
-    batch, for one canvas bucket.
+    """One optimizer step of a rank of a (dp, tp) mesh, on its dp row's rows
+    of the step's batch, for one canvas bucket.
 
-    The JAX package's dp step is one program in which XLA places the
-    gradient all-reduce. Here a step has three parts, because a CUDA graph
-    cannot hold a collective over gloo:
+    The JAX package's mesh step is one program in which XLA places the
+    collectives. Here a step has these parts, because a CUDA graph cannot
+    hold a collective over gloo:
 
       1. `grad`: training mode, this rank's losses over the whole batch's
-         denominator (`compute_losses(denominator=, shard=)`) and their
-         backward; the gradient of every trainable parameter (zeros for one
-         the backward leaves without) and the four partial losses are
-         written into `flat`, one buffer;
-      2. the SUM all-reduce of `flat` over the mesh's group: the gradients
-         of the whole batch's loss, and its four losses;
-      3. `update`: the reduced gradients become the parameters' `.grad`
+         denominator (`compute_losses(denominator=, shard=(dp index,
+         dp))`) and their backward, the tp collectives inside it
+         (`parallel/tp.py`) on a tp mesh; the gradient of every trainable
+         parameter this rank holds (its shard of a tp-sharded one; zeros
+         for one the backward leaves without) and the four partial losses
+         are written into `flat`, one buffer;
+      2. the SUM all-reduce of `flat` over the dp group (the ranks of this
+         rank's tp column; none when dp is 1): the gradients of the whole
+         batch's loss, and its four losses. On a tp mesh `flat` holds the
+         replicated parameters' gradients first: they are summed over
+         every rank and divided by tp instead (`tp.average_replicated`),
+         as the ranks of a dp row compute them alike only up to the card's
+         nondeterministic reductions (K3's atomics, cuDNN's backward), so
+         that every rank applies one gradient to them;
+      3. on a tp mesh with clipping, `TrainOptimizer.reduce_tp_squares`:
+         the sharded gradients' sums of squares, summed over the tp group,
+         into a buffer the update reads;
+      4. `update`: the reduced gradients become the parameters' `.grad`
          (a parameter the backward left without one keeps none, as on one
-         device), then `optimizer.step()` (clipping of the reduced
-         gradients, decay, the update) and a copy of the reduced losses.
+         device), then `optimizer.step()` (clipping by the group's global
+         norm, decay, the update) and a copy of the reduced losses.
 
-    Every rank applies the same update to the same parameters, so they
-    stay identical bit for bit across ranks. On a CUDA model `grad` and
-    `update` are each a CapturedStep (a CUDA graph) replayed around the
-    all-reduce; on the CPU all three run eagerly. One instance serves the
-    packed step and the K-step block: a block is K steps, each with its
+    Every rank of a tp column applies the same update to its shards, and
+    every rank the same update to the replicated parameters, so those stay
+    identical bit for bit on every rank. On a
+    CUDA model `update` is a CapturedStep (a CUDA graph) and so is `grad`
+    on a mesh of tp=1; on a tp mesh `grad` runs eagerly, a rule the mesh
+    sets, as exact RoIPool's: its tp collectives run over gloo, or over
+    nccl uncaptured. On the CPU every part runs eagerly. One instance serves
+    the packed step and the K-step block: a block is K steps, each with its
     all-reduce.
 
     `packed(images (b,H,W,3) uint8, aux (b, aux_width) f32, denominator
@@ -681,9 +701,14 @@ class DataParallelStep:
                  generator: Optional[torch.Generator] = None, pool=None):
         cfg = model.cfg
         grid = anchor_grid_for(cfg, canvas_h, canvas_w)
-        params = [p for p in model.parameters() if p.requires_grad]
+        trained = [p for p in model.parameters() if p.requires_grad]
+        # The replicated parameters first, then (on a tp mesh) the shards.
+        replicated = [p for p in trained if not getattr(p, "tp_sharded", False)]
+        params = replicated + [p for p in trained if getattr(p, "tp_sharded", False)]
         sizes = [p.numel() for p in params]
         self.mesh = mesh
+        self.optimizer = optimizer
+        self.replicated = sum(p.numel() for p in replicated)
         self.flat = torch.zeros(sum(sizes) + 4, device=params[0].device)
         views = [v.view(p.shape) for v, p in zip(torch.split(self.flat[:-4], sizes), params)]
         reduced_losses = self.flat[-4:]
@@ -693,7 +718,7 @@ class DataParallelStep:
             model.train()
             optimizer.zero_grad()
             total, losses = compute_losses(model, batch, grid, generator=generator, denominator=denominator,
-                                           shard=(mesh.rank, mesh.dp))
+                                           shard=(mesh.dp_index, mesh.dp))
             total.backward()
             live[:] = [p.grad is not None for p in params]
             for p, v in zip(params, views):
@@ -704,21 +729,38 @@ class DataParallelStep:
             reduced_losses.copy_(torch.stack([v.detach() for v in losses]))
             return reduced_losses
 
-        def update() -> torch.Tensor:
+        def attach() -> None:
             for p, v, has_grad in zip(params, views, live):
                 p.grad = v if has_grad else None
+
+        def update() -> torch.Tensor:
+            attach()
             optimizer.step()
             return reduced_losses.clone()
 
         def grad_packed(images, aux, denominator):
             return grad(unpack_aux(images, aux, cfg.max_gt_boxes)[0], denominator)
 
-        self._grad, self._update = grad, update
-        self.grad = CapturedStep(grad_packed, model, optimizer, generator, pool, state=(self.flat,))
+        self._grad, self._update, self._attach = grad, update, attach
+        self.grad = CapturedStep(grad_packed, model, optimizer, generator, pool, state=(self.flat,),
+                                 collectives=mesh.tp > 1)
         self.update = CapturedStep(update, model, optimizer, None, pool, state=(self.flat,))
 
     def reduce(self) -> None:
-        dist.all_reduce(self.flat, group=self.mesh.group)
+        """The dp all-reduce of `flat` (on a tp mesh, of its shards and
+        losses, and the replicated gradients' average); then, on a tp mesh,
+        the sums of squares the clipping norm needs from the tp group."""
+        mesh = self.mesh
+        if mesh.tp == 1:
+            if mesh.dp > 1:
+                dist.all_reduce(self.flat, group=mesh.dp_group)
+            return
+        tp.average_replicated(self.flat[:self.replicated], mesh)
+        if mesh.dp > 1:
+            dist.all_reduce(self.flat[self.replicated:], group=mesh.dp_group)
+        if self.optimizer.clipnorm > 0:
+            self._attach()
+            self.optimizer.reduce_tp_squares(self.mesh.tp_group)
 
     def packed(self, images: torch.Tensor, aux: torch.Tensor, denominator: torch.Tensor):
         self.grad(images, aux, denominator)

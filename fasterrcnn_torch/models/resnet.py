@@ -32,6 +32,7 @@ from torch import nn
 from fasterrcnn_torch.data.image import TORCHVISION_RGB
 from fasterrcnn_torch.models.backbone import BackboneSpec, register_backbone
 from fasterrcnn_torch.models.layers import Conv2d
+from fasterrcnn_torch.parallel import tp
 
 # Bottlenecks per stage (layer1..layer4), torchvision's architectures.
 ARCHITECTURES = {
@@ -75,7 +76,19 @@ class Bottleneck(nn.Module):
     next conv reads it and at the block's output: the rounding of one XLA
     fusion of those elementwise ops in bf16. In f32 this is the op-by-op
     arithmetic.
+
+    A layer4 block on a tp mesh (`tp_mesh`, set by `parallel/tp.
+    shard_model`) holds this rank's output channels of conv1 and bn1 and
+    its input channels of conv2: conv1 runs on `copy_to_tp` of the input
+    (the shortcut takes the input itself, so the tp all-reduce of the input
+    gradient covers conv1's part only), and `reduce_from_tp` sums the
+    ranks' partial conv2 outputs in f32 before bn2's f32 chain. In bf16 each
+    partial output is rounded to bf16 before that sum, where one device
+    rounds the whole conv2 output once: the only arithmetic tp changes,
+    besides the order of the sum.
     """
+
+    tp_mesh = None
 
     def __init__(self, in_channels: int, channels: int, stride: int = 1):
         super().__init__()
@@ -93,8 +106,12 @@ class Bottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
-        y = F.relu(self.bn1.affine_f32(self.conv1(x))).to(dt)
-        y = F.relu(self.bn2.affine_f32(self.conv2(y))).to(dt)
+        mesh = self.tp_mesh
+        y = F.relu(self.bn1.affine_f32(self.conv1(tp.copy_to_tp(x, mesh)))).to(dt)
+        y = self.conv2(y)
+        if mesh is not None:
+            y = tp.reduce_from_tp(y.float(), mesh)
+        y = F.relu(self.bn2.affine_f32(y)).to(dt)
         y = self.bn3.affine_f32(self.conv3(y))
         residual = self.downsample_bn.affine_f32(self.downsample_conv(x)) if self.project else x
         return F.relu(y + residual).to(dt)

@@ -22,6 +22,7 @@ from torch import nn
 from fasterrcnn_torch.data.image import CAFFE_BGR, TORCHVISION_RGB
 from fasterrcnn_torch.models.backbone import BackboneSpec, register_backbone
 from fasterrcnn_torch.models.layers import Conv2d, Linear
+from fasterrcnn_torch.parallel import tp
 
 _BLOCKS = ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))
 
@@ -56,7 +57,22 @@ class VGG16FeatureExtractor(nn.Module):
 class VGG16Head(nn.Module):
     """Pooled RoIs (P, 7, 7, 512) -> feature vectors (P, 4096), flattened in
     HWC order as the JAX package flattens them. Dropout after fc1 and fc2
-    when `dropout` > 0, active in training mode only."""
+    when `dropout` > 0, active in training mode only.
+
+    On a tp mesh (`tp_mesh`, set by `parallel/tp.shard_model`) fc1 holds
+    this rank's rows of the weight (its output columns) and fc2 its columns:
+    fc1 runs on `copy_to_tp` of the input, fc2 without its bias, then
+    `reduce_from_tp` sums the ranks' partial products in f32 and fc2's bias
+    is added once. In bf16 each partial product is rounded to bf16 before
+    that sum and the bias is added in f32, rounding once, where one device
+    rounds the whole product with its bias: the only arithmetic tp changes,
+    besides the order of the sum. Every tp rank of a dp row draws the whole
+    (P, 4096) dropout masks, as one device draws them, from the default
+    generators its row shares (`engine.rank_seed` of the dp index), and
+    fc1's is sliced to this rank's columns: the replicated fc2 output sees
+    the same mask on every rank of the row."""
+
+    tp_mesh = None
 
     def __init__(self, dropout: float = 0.0):
         super().__init__()
@@ -66,8 +82,26 @@ class VGG16Head(nn.Module):
 
     def forward(self, rois: torch.Tensor) -> torch.Tensor:
         x = rois.reshape(rois.shape[0], -1)
-        x = self.dropout(F.relu(self.fc1(x)))
-        return self.dropout(F.relu(self.fc2(x)))
+        mesh = self.tp_mesh
+        if mesh is None:
+            x = self.dropout(F.relu(self.fc1(x)))
+            return self.dropout(F.relu(self.fc2(x)))
+        x = self._tp_dropout(F.relu(self.fc1(tp.copy_to_tp(x, mesh))), self.fc1.out_features, mesh)
+        partial = F.linear(x, self.fc2.weight.to(x.dtype))
+        x = (tp.reduce_from_tp(partial.float(), mesh) + self.fc2.bias).to(x.dtype)
+        return self._tp_dropout(F.relu(x), self.fc2.out_features, mesh)
+
+    def _tp_dropout(self, x: torch.Tensor, width: int, mesh) -> torch.Tensor:
+        """Dropout of this rank's columns of a (P, width) activation (a
+        layer's full width: sharding leaves `out_features` as it was): the
+        whole mask drawn (`self.dropout` of ones: F.dropout's draws and
+        scale), then sliced."""
+        if not (self.training and isinstance(self.dropout, nn.Dropout)):
+            return x
+        mask = self.dropout(torch.ones(x.shape[0], width, dtype=x.dtype, device=x.device))
+        if x.shape[1] != width:
+            mask = mask.narrow(1, mesh.tp_index * x.shape[1], x.shape[1])
+        return x * mask
 
 
 def _make_spec() -> BackboneSpec:

@@ -1,2 +1,2 @@
-"""Data parallelism over ranks (`parallel/mesh.py`): the counterpart of the
-JAX package's `parallel/` for its dp axis."""
+"""Data and tensor parallelism over ranks (`parallel/mesh.py`, `parallel/tp.py`):
+the counterpart of the JAX package's `parallel/` and its (dp, tp) mesh."""

@@ -356,15 +356,15 @@ def _checked(state: Mapping[str, torch.Tensor], reference: Mapping[str, torch.Te
     return out
 
 
-def load(model: nn.Module, filepath: str) -> Dict[str, torch.Tensor]:
-    """The full state dict of `model` with the weights of `filepath` put in.
+def load(reference: Mapping[str, torch.Tensor], filepath: str) -> Dict[str, torch.Tensor]:
+    """The full state dict `reference` (a model's) with the weights of
+    `filepath` put in.
 
     The format is detected from the file's signature, then, for torch files,
     from the state dict's keys, so a recognized but broken file raises its
     own importer's error. Partial imports (VGG-16 and ResNet backbone files)
     replace only what they carry; the rest keeps the model's current values.
     """
-    reference = model.state_dict()
     kind = _sniff_format(filepath)
     if kind == "torch":
         raw = _load_torch_file(filepath)
@@ -422,14 +422,14 @@ class TrainCheckpointManager:
             if name.isdigit() and os.path.isfile(os.path.join(self._dir, name, "meta.json"))
         )
 
-    def save(self, epoch: int, model: nn.Module, mAP: float) -> None:
-        """Write epoch `epoch`'s checkpoint of `model` and drop all but the
-        newest `max_to_keep`."""
+    def save(self, epoch: int, state: Mapping[str, torch.Tensor], mAP: float) -> None:
+        """Write epoch `epoch`'s checkpoint of the state dict `state` and drop
+        all but the newest `max_to_keep`."""
         final = os.path.join(self._dir, str(epoch))
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, os.path.join(tmp, "params.pth"))
+        torch.save({k: v.detach().cpu() for k, v in state.items()}, os.path.join(tmp, "params.pth"))
         with open(os.path.join(tmp, "meta.json"), "w") as f:
             json.dump({"epoch": epoch, "mAP": float(mAP)}, f)
         shutil.rmtree(final, ignore_errors=True)
@@ -464,14 +464,14 @@ class BestWeightsTracker:
         self._best_map = 0.0
         self._best_epoch = None
 
-    def on_epoch_end(self, model: nn.Module, epoch: int, mAP: float) -> None:
-        """A better epoch's weights are copied to the CPU: state_dict()
-        returns views of the live parameters, which the optimizer updates in
-        place (and .cpu() of a CPU tensor is no copy)."""
+    def on_epoch_end(self, state: Mapping[str, torch.Tensor], epoch: int, mAP: float) -> None:
+        """A better epoch's weights, the state dict `state`, are copied to
+        the CPU: state_dict() returns views of the live parameters, which the
+        optimizer updates in place (and .cpu() of a CPU tensor is no copy)."""
         if mAP > self._best_map:
             self._best_map = mAP
             self._best_epoch = epoch
-            self._best_params = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+            self._best_params = {k: v.detach().to("cpu", copy=True) for k, v in state.items()}
 
     def save_best_weights(self) -> None:
         if self._best_params is not None:

@@ -102,7 +102,7 @@ def models():
 def assert_both_load_the_same(models, path):
     params, port = models
     want = dict(flat(jax_ckpt.load(params, path)))
-    state = checkpoint.load(port, path)
+    state = checkpoint.load(port.state_dict(), path)
     assert set(state) == set(port.state_dict())
     assert all(v.dtype == torch.float32 and v.device.type == "cpu" for v in state.values())
     got = dict(flat(to_jax_params(state)))
@@ -160,7 +160,7 @@ def test_own_weights_round_trip_bit_for_bit(models, tmp_path):
     _, port = models
     path = str(tmp_path / "w.pth")
     checkpoint.save_weights(path, port)
-    state = checkpoint.load(port, path)
+    state = checkpoint.load(port.state_dict(), path)
     for key, value in port.state_dict().items():
         assert torch.equal(state[key], value), key
 
@@ -172,20 +172,20 @@ def test_own_weights_are_checked_against_the_model(models, tmp_path):
     del state["detector_heads.regressor.bias"]
     torch.save(state, path)
     with pytest.raises(ValueError, match="missing keys.*detector_heads.regressor.bias"):
-        checkpoint.load(port, path)
+        checkpoint.load(port.state_dict(), path)
     state["detector_heads.regressor.bias"] = torch.zeros(81)
     torch.save(state, path)
     with pytest.raises(ValueError, match="detector_heads.regressor.bias has shape"):
-        checkpoint.load(port, path)
+        checkpoint.load(port.state_dict(), path)
     state["detector_heads.regressor.bias"] = torch.zeros(80, dtype=torch.float64)
     torch.save(state, path)
     with pytest.raises(ValueError, match="detector_heads.regressor.bias is torch.float64"):
-        checkpoint.load(port, path)
+        checkpoint.load(port.state_dict(), path)
     state["detector_heads.regressor.bias"] = torch.zeros(80)
     state["extra.weight"] = torch.zeros(1)
     torch.save(state, path)
     with pytest.raises(ValueError, match="unexpected keys.*extra.weight"):
-        checkpoint.load(port, path)
+        checkpoint.load(port.state_dict(), path)
 
 
 def test_load_raises_for_resnet_unknown_and_empty_files(models, tmp_path):
@@ -198,26 +198,26 @@ def test_load_raises_for_resnet_unknown_and_empty_files(models, tmp_path):
     resnet = str(tmp_path / "resnet50.pth")
     state = torchvision_resnet_state(np.random.default_rng(8), "resnet50")
     torch.save(state, resnet)
-    loaded = checkpoint.load(resnet50, resnet)
+    loaded = checkpoint.load(resnet50.state_dict(), resnet)
     assert torch.equal(loaded["feature_extractor.conv1.weight"], state["conv1.weight"])
     assert torch.equal(loaded["roi_head.layer4.block2.conv3.weight"], state["layer4.2.conv3.weight"])
     with pytest.raises(ValueError, match="not a torchvision ResNet of this model"):
-        checkpoint.load(port, resnet)
+        checkpoint.load(port.state_dict(), resnet)
     torch.save({"conv1.weight": torch.zeros(64, 3, 7, 7), "layer1.0.conv1.weight": torch.zeros(64, 64, 1, 1)}, resnet)
     with pytest.raises(ValueError, match="not a torchvision ResNet of this model.*bn1"):
-        checkpoint.load(resnet50, resnet)
+        checkpoint.load(resnet50.state_dict(), resnet)
     other = str(tmp_path / "other.pth")
     torch.save({"something.weight": torch.zeros(3)}, other)
     with pytest.raises(ValueError, match="unknown layout"):
-        checkpoint.load(port, other)
+        checkpoint.load(port.state_dict(), other)
     empty = tmp_path / "empty.pth"
     empty.write_bytes(b"")
     with pytest.raises(ValueError, match="empty"):
-        checkpoint.load(port, str(empty))
+        checkpoint.load(port.state_dict(), str(empty))
     garbage = tmp_path / "garbage.bin"
     garbage.write_bytes(b"\xc1 not msgpack at all")
     with pytest.raises(ValueError, match="matched no known signature"):
-        checkpoint.load(port, str(garbage))
+        checkpoint.load(port.state_dict(), str(garbage))
 
 
 def test_train_checkpoint_manager_keeps_three_and_resumes_newest(tmp_path):
@@ -228,7 +228,7 @@ def test_train_checkpoint_manager_keeps_three_and_resumes_newest(tmp_path):
     for epoch in range(1, 6):
         with torch.no_grad():
             model.weight.fill_(epoch)
-        manager.save(epoch, model, mAP=10.0 * epoch)
+        manager.save(epoch, model.state_dict(), mAP=10.0 * epoch)
         saved[epoch] = {k: v.clone() for k, v in model.state_dict().items()}
     assert sorted(os.listdir(tmp_path / "ck")) == ["3", "4", "5"]
     with open(tmp_path / "ck" / "5" / "meta.json") as f:
@@ -244,12 +244,12 @@ def test_best_weights_tracker_saves_the_best_epoch(tmp_path):
     batch = make_host_batch(list(SyntheticDataset(num_samples=2, height=120, width=150, seed=0)), (128, 160), 8)
     path = str(tmp_path / "best.pth")
     tracker = checkpoint.BestWeightsTracker(path)
-    tracker.on_epoch_end(engine.model, 1, 0.0)  # not above the start (0.0)
+    tracker.on_epoch_end(engine.model.state_dict(), 1, 0.0)  # not above the start (0.0)
     engine.train_step(batch)
-    tracker.on_epoch_end(engine.model, 2, 50.0)
+    tracker.on_epoch_end(engine.model.state_dict(), 2, 50.0)
     best = {k: v.clone() for k, v in engine.model.state_dict().items()}
     engine.train_step(batch)  # updates the live parameters in place
-    tracker.on_epoch_end(engine.model, 3, 40.0)
+    tracker.on_epoch_end(engine.model.state_dict(), 3, 40.0)
     tracker.save_best_weights()
     saved = torch.load(path, weights_only=True)
     changed = [k for k in best if not torch.equal(best[k], engine.model.state_dict()[k])]

@@ -139,9 +139,19 @@ def test_cli_dump_anchors_renders_deferred_voc(tmp_path, monkeypatch):
     (["--num-devices", "2", "--tp", "2"], "A16"),
     (["--tp", "2"], "A16"),
 ])
-def test_cli_waiting_flags_raise_naming_their_item(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main([*TRAIN, "--epochs", "1", *flags])
+def test_cli_waiting_flags_raise_naming_their_item(flags, item, monkeypatch):
+    """The flags that waited for ROADMAP `item` (tensor parallelism) now run:
+    on CPU ranks, --tp 2 with --num-devices 2, or alone (T CPU ranks), plans
+    a dp=1 x tp=2 mesh of two CPU ranks and spawns the run on it (the run
+    itself: `tests/test_torch_mesh_eval.py`)."""
+    from fasterrcnn_torch.parallel import mesh as mesh_lib
+
+    spawned = []
+    monkeypatch.setattr(mesh_lib, "spawn", lambda fn, mesh, args=(): spawned.append((fn, mesh, args)))
+    cli.main([*TRAIN, "--epochs", "1", *flags])
+    ((fn, mesh, (options,)),) = spawned
+    assert fn is cli.run_rank and options.tp == 2, item
+    assert mesh.shape == {"dp": 1, "tp": 2} and mesh.devices == ("cpu", "cpu") and mesh.backend == "gloo"
 
 
 def test_cli_memory_stats_and_debug_nans_print_the_jax_lines(tmp_path, capsys):

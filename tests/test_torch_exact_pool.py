@@ -356,8 +356,8 @@ def test_reference_checkpoint_evaluates_with_custom_roi_pool(tmp_path, monkeypat
     monkeypatch.chdir(tmp_path)
     path = str(tmp_path / "checkpoint-epoch-14-mAP-71.0.pth")
     torch.save({"epoch": 14, "model_state_dict": reference_state(np.random.default_rng(2))}, path)
-    crop = checkpoint.load(torch_frcnn.FasterRCNN(tiny_config(torch_config)), path)
-    exact = checkpoint.load(torch_frcnn.FasterRCNN(exact_config(torch_config, "vgg16")), path)
+    crop = checkpoint.load(torch_frcnn.FasterRCNN(tiny_config(torch_config)).state_dict(), path)
+    exact = checkpoint.load(torch_frcnn.FasterRCNN(exact_config(torch_config, "vgg16")).state_dict(), path)
     assert crop.keys() == exact.keys() and all(torch.equal(crop[k], exact[k]) for k in crop)
     cli.main([*TINY, "--eval", "--custom-roi-pool", "--synthetic", "4", "--eval-batch-size", "2", "--load-from", path])
     out = capsys.readouterr().out

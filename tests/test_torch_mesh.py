@@ -1,16 +1,19 @@
-"""Data-parallel training of the port (`parallel/mesh.py`,
-`models/faster_rcnn.DataParallelStep`, `Engine(mesh=...)`) against JAX's dp
-mesh and against the port on one device, on the CPU.
+"""Data- and tensor-parallel training of the port (`parallel/mesh.py`,
+`parallel/tp.py`, `models/faster_rcnn.DataParallelStep`, `Engine(mesh=...)`)
+against JAX's dp and tp meshes and against the port on one device, on the
+CPU.
 
 One 2-rank gloo group (`mesh.spawn`, CPU ranks) runs every training run of
-this file (`tests/torch_mesh_ranks.train_runs`, RUNS) while this process
-runs JAX's `Engine` on `make_mesh(2, tp=1)` of the 8 virtual CPU devices
-and the port's one-device runs; the tests read the results. The model is
-`tests/test_torch_predict.py`'s tiny config (full-width VGG-16, 128x160
-canvas), B=4; every run starts from the port's seed-0 parameters, and
-JAX's engine is given the same. 7 images make a full batch and a residue
-of 3 real images, of which rank 0 holds 2 and rank 1 one beside a padding
-row.
+this file (`tests/torch_mesh_ranks.train_runs`): RUNS on dp=2 x tp=1, then
+TP_RUNS on the same ranks re-grouped as dp=1 x tp=2. Meanwhile this
+process runs JAX's `Engine` on `make_mesh(2, tp=1)` and `make_mesh(2,
+tp=2)` of the 8 virtual CPU devices and the port's one-device runs; the
+tests read the results. The model is `tests/test_torch_predict.py`'s tiny
+config (full-width VGG-16, 128x160 canvas), or the tiny ResNet-50 in
+from-scratch mode, B=4; every run starts from the port's seed-0 parameters
+of its config, and JAX's engine is given the same. 7 images make a full
+batch and a residue of 3 real images, of which rank 0 holds 2 and rank 1
+one beside a padding row under dp (under tp both ranks hold all 4 rows).
 
 Tolerances:
   * against JAX (the run fed JAX's draws): losses 1e-4 relative
@@ -19,11 +22,15 @@ Tolerances:
   * against the port on one device: losses 1e-5 absolute, parameters
     rtol 1e-4, atol 1e-6, as JAX's `tests/test_mesh.py` holds its dp mesh
     to one device (the order of the gradient sum is the only difference);
-    Adam's updates as stated there;
-  * across ranks: parameters identical bit for bit.
+    Adam's updates as stated there; the tp ResNet-50 run losses 1e-4 and
+    parameters rtol 1e-4, atol 1e-5, as that file holds JAX's ResNet tp
+    step;
+  * across ranks: parameters identical bit for bit (under tp, the
+    replicated ones, and the gathered full state).
 """
 
 import threading
+from typing import Tuple
 
 import jax
 import numpy as np
@@ -49,7 +56,10 @@ from tests.test_torch_train import jax_draws
 
 B = 4
 RUNS = torch_mesh_ranks.RUNS
+TP_RUNS = torch_mesh_ranks.TP_RUNS
 JAX_N = RUNS["jax"][0]
+# The tp runs JAX's engine runs too (the dropout run is the port's alone).
+JAX_TP_RUNS = [name for name, run in TP_RUNS.items() if run[5]]
 
 
 class RecordingStats(TrainingStatistics):
@@ -125,6 +135,9 @@ def runs(tmp_path_factory):
                 rows = torch_mesh_ranks.epoch(engine, start, torch_mesh_ranks.dataset(n), B, 8,
                                               torch_config.TrainConfig(**optimizer))
             one[name] = (rows, {k: v.detach().clone() for k, v in engine.model.named_parameters()})
+        one_labels, one_model = engine.labels, engine.model
+        del engine, jax_eng
+        tp = {name: tp_references(name, steps) for name in TP_RUNS}
     finally:
         torch.set_num_threads(threads)
         thread.join(timeout=900)
@@ -132,13 +145,43 @@ def runs(tmp_path_factory):
     if "error" in box:
         raise box["error"]
     dp = {}
-    for name in RUNS:
+    for name in [*RUNS, *TP_RUNS]:
         dp[name] = torch.load(tmp / f"{name}.pth", weights_only=True)
         (tmp / f"{name}.pth").unlink()
     return dict(
         ranks=box["ranks"], dp=dp, one=one, start=start, jax_rows=np.stack(stats.rows), jax_after=jax_after,
-        jax_batch_error=jax_batch_error, labels=engine.labels, model=engine.model,
+        jax_batch_error=jax_batch_error, labels=one_labels, model=one_model, tp=tp,
     )
+
+
+def tp_references(name, steps):
+    """TP_RUNS[name] on the port's one device and, where the run is fed
+    JAX's draws, on JAX's `Engine` over `make_mesh(2, tp=2)`, from the
+    port's seed-0 parameters of its config: the start state, each run's
+    loss rows and parameters after, and the parameters' group labels."""
+    _, _, _, n, optimizer, fed = TP_RUNS[name]
+    engine = Engine(torch_mesh_ranks.tp_config(torch_config, name), seed=0, device="cpu")
+    start = {k: v.clone() for k, v in engine.model.state_dict().items()}
+    draws = torch_mesh_ranks.fed_draws(steps) if fed else torch_frcnn.draw_train_uniforms
+    # The ranks' default generators: rank_seed of dp index 0 (dropout draws).
+    torch.manual_seed(rank_seed(0, 0))
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(torch_frcnn, "draw_train_uniforms", draws)
+        rows = torch_mesh_ranks.epoch(engine, start, torch_mesh_ranks.dataset(n), B, 8,
+                                      torch_config.TrainConfig(**optimizer))
+    out = dict(start=start, labels=engine.labels, one=(rows, {k: v.detach().clone()
+                                                              for k, v in engine.model.named_parameters()}))
+    if fed:
+        with pytest.MonkeyPatch.context() as patch:
+            patch.setattr(jax_engine, "init_params", lambda *args, **kwargs: to_jax_params(start))
+            jax_eng = jax_engine.Engine(torch_mesh_ranks.tp_config(jax_config, name),
+                                        jax_config.TrainConfig(batch_size=B, **optimizer), seed=0,
+                                        init_canvas=(CANVAS_H, CANVAS_W), mesh=jax_mesh.make_mesh(2, tp=2))
+        stats = RecordingStats()
+        jax_eng.train_epoch(JaxSyntheticDataset(num_samples=n, height=120, width=150, seed=3), batch_size=B,
+                            stats=stats, progress=False)
+        out["jax"] = (np.stack(stats.rows), from_jax_params(jax_eng.params))
+    return out
 
 
 def test_make_mesh_shapes_and_its_too_many_devices_error_follow_jax():
@@ -148,8 +191,8 @@ def test_make_mesh_shapes_and_its_too_many_devices_error_follow_jax():
         jax_mesh.make_mesh(9, tp=1)
     with pytest.raises(ValueError, match="requested 9 devices but only 8 are available"):
         mesh_lib.make_mesh(9, devices=["cpu"] * 8)
-    with pytest.raises(NotImplementedError, match="the tp slice"):
-        mesh_lib.make_mesh(2, tp=2, devices=["cpu"] * 2)
+    assert mesh_lib.make_mesh(2, tp=2, devices=["cpu"] * 2).shape == dict(jax_mesh.make_mesh(2, tp=2).shape) == {
+        "dp": 1, "tp": 2}
 
 
 @pytest.mark.parametrize(
@@ -289,6 +332,74 @@ def test_dropout_masks_are_each_ranks_own_draws(runs):
         np.testing.assert_array_equal(out["dropout_mask"], want)
         masks.append(want)
     assert (masks[0] != masks[1]).any()
+
+
+def update_gap(after, want, start, labels) -> Tuple[float, str]:
+    """The worst relative norm of a trained tensor's update against the
+    wanted one (frozen tensors must not move), and its tensor."""
+    worst = (0.0, "")
+    for name, label in labels.items():
+        got_update, want_update = after[name] - start[name], want[name] - start[name]
+        if label == "frozen":
+            assert not got_update.any() and not want_update.any(), name
+            continue
+        worst = max(worst, (rel_norm(got_update, want_update), name))
+    return worst
+
+
+@pytest.mark.parametrize("run", JAX_TP_RUNS)
+def test_tp2_losses_match_jax_mesh(runs, run):
+    got, want = runs["ranks"][0][run]["rows"], runs["tp"][run]["jax"][0]
+    assert got.shape == want.shape == (2, 4)
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+@pytest.mark.parametrize("run", JAX_TP_RUNS)
+def test_tp2_updates_match_jax_mesh(runs, run):
+    ref = runs["tp"][run]
+    gap, name = update_gap(runs["dp"][run], ref["jax"][1], ref["start"], ref["labels"])
+    assert gap <= 2e-3, (name, gap)
+
+
+@pytest.mark.parametrize("run", TP_RUNS)
+def test_tp2_matches_one_device(runs, run):
+    """Each tp run against the same run on one device, with JAX's own
+    bounds for its tp mesh against one device (`tests/test_mesh.py`): the
+    VGG runs (clipping; dropout, whose masks the tp row draws as one device
+    does) as its fc-pair oracle, ResNet-50 as its layer4 oracle."""
+    rows, params = runs["tp"][run]["one"]
+    loss_atol, atol = (1e-4, 1e-5) if run == "tp_resnet50" else (1e-5, 1e-6)
+    got = runs["ranks"][0][run]["rows"]
+    assert got.shape == rows.shape
+    np.testing.assert_allclose(got, rows, rtol=0, atol=loss_atol)
+    for name, p in params.items():
+        torch.testing.assert_close(runs["dp"][run][name], p, rtol=1e-4, atol=atol, msg=name)
+
+
+@pytest.mark.parametrize("run", TP_RUNS)
+def test_tp2_replicated_parameters_are_bit_identical_and_the_shards_gather_to_one_state(runs, run):
+    rank0, rank1 = (r[run] for r in runs["ranks"])
+    assert rank0["digests"][0] == rank1["digests"][0]  # the replicated tensors
+    assert rank0["digests"][1] != rank1["digests"][1]  # each rank's shards
+    assert rank0["full_digest"] == rank1["full_digest"] == torch_mesh_ranks.digest_of(runs["dp"][run])
+    assert rank0["shards_match"] and rank1["shards_match"]
+    np.testing.assert_array_equal(rank0["rows"], rank1["rows"])
+    assert rank0["fc1_rows"] == (0 if run == "tp_resnet50" else 2048)
+
+
+def test_tp2_ranks_of_a_dp_row_share_their_default_generators(runs):
+    for out in runs["ranks"]:
+        assert {out[run]["initial_seed"] for run in TP_RUNS} == {rank_seed(0, 0)}
+
+
+def test_tp2_clipping_counts_the_sharded_gradients_once(runs):
+    """The clip run's sharded squares, summed over the tp group, alike on
+    both ranks; their norm alone exceeds clipnorm, so the clip acted (and
+    the run matches one device above)."""
+    squares = [out["tp_vgg_clip"]["tp_squares"] for out in runs["ranks"]]
+    np.testing.assert_array_equal(squares[0], squares[1])
+    assert np.sqrt(squares[0][0]) > torch_mesh_ranks.CLIPNORM
+    assert not any(out[run]["tp_squares"].any() for out in runs["ranks"] for run in ("tp_resnet50", "tp_vgg_dropout"))
 
 
 def test_a_failing_rank_fails_the_run():

@@ -1,20 +1,23 @@
-"""Data-parallel predict, evaluate, weights and the CLI of the port
-(`Engine(mesh=...)`, `python -m fasterrcnn_torch --num-devices 2`) against
-JAX's dp mesh and against the port on one device, on the CPU.
+"""Data- and tensor-parallel predict, evaluate, weights and the CLI of the
+port (`Engine(mesh=...)`, `python -m fasterrcnn_torch --num-devices 2
+[--tp 2]`) against JAX's dp mesh and against the port on one device, on
+the CPU.
 
 One 2-rank gloo group (CPU ranks, `tests/torch_mesh_ranks.eval_runs`)
 loads the port's seed-0 weights from a file, predicts a batch of 4, runs
 predict_image and evaluates a 6-image VOC split (two canvas buckets, so
-residue batches, at batch_size 4), at score threshold 0.05, while
+residue batches, at batch_size 4), at score threshold 0.05, and saves the
+weights, first as dp=2 x tp=1, then re-grouped as dp=1 x tp=2, while
 this process runs the same on JAX's `Engine` over `make_mesh(2, tp=1)`
 (same weights) and on the port's one-device engine. Both readers are held
 to PIL, as in `tests/test_torch_eval.py`.
 
 Tolerances: dp=2 against one device, none (each rank predicts its rows as
-one device does: the same images, the same programs); against JAX, those
-of `tests/test_torch_predict.py` (scores 1e-5, boxes 1e-3 pixels, the same
-valid slots) and the mAP equal, as `tests/test_torch_eval.py` holds one
-device's.
+one device does: the same images, the same programs); tp=2 against one
+device and against JAX, those of `tests/test_torch_predict.py` (scores
+1e-5, boxes 1e-3 pixels, the same valid slots: fc2's sum is split across
+the ranks) and the mAP equal, as `tests/test_torch_eval.py` holds one
+device's; saved weights bit for bit.
 """
 
 import os
@@ -94,14 +97,19 @@ def evals(tmp_path_factory):
         assert not thread.is_alive()
         if "error" in box:
             raise box["error"]
-        saved = sorted(f for f in os.listdir(tmp) if f.startswith("saved_by_rank"))
+        saved = sorted(f for f in os.listdir(tmp) if "saved_by_rank" in f)
+        file_state = torch.load(weights, weights_only=True)
+        tp_saved = torch.load(tmp / "tp_saved_by_rank0.pth", weights_only=True)
+        tp_saved_equal = tp_saved.keys() == file_state.keys() and all(
+            torch.equal(tp_saved[k], file_state[k]) for k in file_state)
+        del file_state, tp_saved
         for name in saved:
             os.remove(tmp / name)
         os.remove(weights)
     finally:
         torch.set_num_threads(threads)
     return dict(ranks=box["ranks"], jax_map=jax_map, one_map=one_map, jax_det=jax_det, one_det=one_det,
-                one_image=one_image, digest=digest, saved=saved)
+                one_image=one_image, digest=digest, saved=saved, tp_saved_equal=tp_saved_equal)
 
 
 def jax_mesh_predict(jax_eng, images, image_hw):
@@ -151,7 +159,47 @@ def test_dp2_map_equals_one_devices_and_jax_meshs(evals):
 
 
 def test_save_weights_writes_on_rank_0_only(evals):
-    assert evals["saved"] == ["saved_by_rank0.pth"]
+    assert evals["saved"] == ["saved_by_rank0.pth", "tp_saved_by_rank0.pth"]
+
+
+def test_tp2_load_and_save_weights_keep_the_files_tensors_bit_for_bit(evals):
+    """Each tp rank holds its shard of the file's tensors (the gathered
+    state is the file's), and the file rank 0 writes is the file a tp=1
+    engine wrote, bit for bit."""
+    tp = [rank["tp"] for rank in evals["ranks"]]
+    assert [r["digest"] for r in tp] == [evals["digest"]] * 2
+    assert tp[0]["digests"][0] == tp[1]["digests"][0] and tp[0]["digests"][1] != tp[1]["digests"][1]
+    assert evals["tp_saved_equal"]
+
+
+def check_detections(got, want):
+    (boxes, scores, valid), (wboxes, wscores, wvalid) = got, want
+    np.testing.assert_array_equal(valid, wvalid)
+    live = valid > 0
+    assert live.sum() > 0
+    np.testing.assert_allclose(scores[live], wscores[live], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(boxes[live], wboxes[live], rtol=0, atol=1e-3)
+
+
+def test_tp2_predict_matches_one_device_and_jax_mesh(evals):
+    for rank in evals["ranks"]:
+        check_detections(rank["tp"]["detections"], evals["one_det"])
+        check_detections(rank["tp"]["detections"], evals["jax_det"])
+    for got, want in zip(*(rank["tp"]["detections"] for rank in evals["ranks"])):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_tp2_predict_image_joins_the_tp_row(evals):
+    want = evals["one_image"]
+    for rank in evals["ranks"]:
+        got = rank["tp"]["predict_image"]
+        assert sorted(got) == sorted(want)
+        for c in want:
+            np.testing.assert_allclose(got[c], want[c], rtol=0, atol=1e-3)
+
+
+def test_tp2_map_equals_one_devices(evals):
+    assert [rank["tp"]["map"] for rank in evals["ranks"]] == [evals["one_map"]] * 2
 
 
 @pytest.fixture
@@ -184,9 +232,36 @@ def test_cli_num_devices_beyond_the_cards_raises_as_jax():
         cli.main(["--tiny", "--num-devices", "99", "--train", "--synthetic", "4"])
 
 
-def test_cli_tp_2_still_raises_naming_the_tp_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP A16, the tp slice"):
-        cli.main(["--device", "cpu", "--tiny", "--num-devices", "2", "--tp", "2", "--train", "--synthetic", "4"])
+def test_cli_tp_2_still_raises_naming_the_tp_slice(in_tmp_path, capfd, monkeypatch):
+    """--num-devices 2 --tp 2, which waited for the tp slice, now runs on
+    two CPU ranks: one epoch of training, rank 0 alone writing the full
+    tensors; then --predict-to-file from the saved weights on the tp row
+    and on one device render the same file."""
+    from PIL import Image
+
+    monkeypatch.setenv("OMP_NUM_THREADS", str(torch_mesh_ranks.THREADS))
+    mesh = ["--device", "cpu", "--tiny", "--num-devices", "2", "--tp", "2"]
+    cli.main([*mesh, "--train", "--synthetic", "2", "--batch-size", "2", "--epochs", "1", "--eval-batch-size", "2",
+              "--checkpoint-dir", "ck", "--save-to", "w.pth"])
+    out = capfd.readouterr().out
+    assert "Device mesh       : dp=1 x tp=2, backend=gloo" in out
+    assert out.count("Epoch 1/1") == 1 and out.count("Mean Average Precision = ") == 2
+    assert out.count("Saved model weights to") == 1
+    assert os.listdir(in_tmp_path / "ck") == ["1"]
+    final = torch.load(in_tmp_path / "w.pth", weights_only=True)
+    epoch1 = torch.load(in_tmp_path / "ck" / "1" / "params.pth", weights_only=True)
+    assert final["roi_head.fc1.weight"].shape == (4096, 25088) and final["roi_head.fc2.weight"].shape == (4096, 4096)
+    assert final.keys() == epoch1.keys() and all(torch.equal(final[k], epoch1[k]) for k in final)
+
+    image = in_tmp_path / "test.jpg"
+    Image.fromarray(np.random.default_rng(0).integers(0, 255, (120, 150, 3), dtype=np.uint8)).save(image)
+    rendered = []
+    for flags in (mesh, ["--device", "cpu", "--tiny"]):
+        cli.main([*flags, "--load-from", "w.pth", "--predict-to-file", str(image)])
+        rendered.append((in_tmp_path / "predictions.png").read_bytes())
+        os.remove(in_tmp_path / "predictions.png")
+    assert rendered[0] == rendered[1]
+    assert capfd.readouterr().out.count("Wrote detection results to 'predictions.png'") == 2
 
 
 def test_an_engine_on_a_mesh_takes_its_device_from_the_mesh():

@@ -409,7 +409,7 @@ def test_torchvision_resnet50_loads_as_in_jax(models, tmp_path):
     path = str(tmp_path / "resnet50.pth")
     torch.save(state, path)
     want = flat(jax_ckpt.load(jax.tree.map(np.asarray, params), path))
-    loaded = checkpoint.load(port, path)
+    loaded = checkpoint.load(port.state_dict(), path)
     assert set(loaded) == set(port.state_dict())
     got = flat(to_jax_params(loaded))
     assert got.keys() == want.keys()
@@ -421,7 +421,7 @@ def test_torchvision_resnet50_loads_as_in_jax(models, tmp_path):
     del state["layer3.2.bn2.running_var"]
     torch.save(state, path)
     with pytest.raises(ValueError, match="layer3.2.bn2.*running_var"):
-        checkpoint.load(port, path)
+        checkpoint.load(port.state_dict(), path)
 
 
 def test_jax_msgpack_of_a_resnet_loads_in_the_port(models, tmp_path):
@@ -434,14 +434,14 @@ def test_jax_msgpack_of_a_resnet_loads_in_the_port(models, tmp_path):
     other = jax.tree.map(lambda v: np.asarray(v) + rng.random(np.shape(v), dtype=np.float32), params)
     path = str(tmp_path / "resnet50.msgpack")
     jax_ckpt.save_weights(path, other)
-    loaded = checkpoint.load(port, path)
+    loaded = checkpoint.load(port.state_dict(), path)
     want = from_jax_params(other)
     assert set(loaded) == set(want)
     for key, value in want.items():
         assert torch.equal(loaded[key], value), key
     own = str(tmp_path / "resnet50.pth")
     checkpoint.save_weights(own, loaded)
-    again = checkpoint.load(port, own)
+    again = checkpoint.load(port.state_dict(), own)
     for key, value in loaded.items():
         assert torch.equal(again[key], value), key
     os.remove(own)
@@ -533,4 +533,4 @@ def test_a_shallower_torchvision_resnet_loads_in_part_in_jax_and_raises_in_the_p
     assert all(not np.asarray(layer3[f"block{i}"]["conv1"]["kernel"]).any() for i in range(6, 23))
     port = torch_frcnn.FasterRCNN(resnet_config(torch_config, "resnet101"))
     with pytest.raises(ValueError, match="layer3 holds 6 bottlenecks, the model 23"):
-        checkpoint.load(port, path)
+        checkpoint.load(port.state_dict(), path)
