@@ -85,8 +85,8 @@ result line):
      packed steps and K-step blocks, each a CUDA graph): graph against
      eager on the every-box tiny config (`scripts/reference_train.
      graph_against_eager`: step 0 identical; the teacher-forced programs'
-     later losses and parameters within twice the eager replicas' largest
-     gap; learning rates and generator offsets those of the eager run; the
+     later losses and parameters, in the closest of five replays, within
+     twice the eager replicas' largest gap; learning rates and generator offsets those of the eager run; the
      trajectories' later losses and final parameters printed beside the
      eager runs' spread); VGG-16 and ResNet-101 (from scratch)
      at full width, f32 and bf16, K=8, B=4, 5 blocks of 600x800 samples
@@ -156,6 +156,15 @@ result line):
      without the tp collectives. dp=2 x tp=2 (four ranks), VGG-16: the
      teacher-forced step and the mAP. Every rank's K1-K3 launches must
      rise.
+  6s. stage isolation: `scripts/profile_inference.py` and
+     `scripts/profile_train.py` through their `main` at B=4, VGG-16 f32,
+     LO/HI 2/4 (each stage's slope and device busy time); each prefix
+     identical (torch.equal) to the whole program's value at that point
+     (predict's proposals and class logits; the train step's loss under
+     no_grad, after its backward and from make_train_step, against
+     compute_losses' from the same draws); `scripts/gradcheck_roi_vjp.py`'s
+     three checks at C=512 (B=4, P=128), its two gates required. K1-K3
+     must launch.
   7. timing (VGG-16 and ResNet-101, each after its paths): Engine.predict
      and Engine.train_step on the host's batch, ms
      per batch and img/s (f32 with TF32 off, f32 with cuDNN TF32 on, bf16),
@@ -1357,11 +1366,70 @@ def phase_bench(counters, card):
     return record, launches
 
 
+def phase_stage_isolation(counters, card, b=4, lo=2, hi=4):
+    """Phase 6s: the stage-isolation profiles (`scripts/profile_inference.py`,
+    `scripts/profile_train.py`, their `profile` on their `setup`) at B=4,
+    VGG-16 f32 (TF32 off), LO/HI 2/4: every stage's slope and device busy
+    time. Then, on the same setups, each prefix against the whole program:
+    stage 2's proposals and stage 3's class logits identical to those inside
+    `make_predict_fn`; the train step's loss under no_grad (stage 2), after
+    its backward (stage 3) and from `make_train_step` (stage 4) identical to
+    `compute_losses`' with autograd on, from the same draws. Then the RoI
+    VJP gradient check (`scripts/gradcheck_roi_vjp.py`) at C=512 with its
+    two gates. K1 and K2 must launch on the predict stages, K1-K3 on the
+    train stages and in the gradient check."""
+    import torch
+    from fasterrcnn_torch.models.faster_rcnn import compute_losses
+    from fasterrcnn_torch.scripts import gradcheck_roi_vjp, profile_inference, profile_train
+
+    t0 = time.perf_counter()
+    for fn in counters:
+        fn.launches = 0
+    flags = ["--batch", str(b), "--lo", str(lo), "--hi", str(hi), "--dtype", "float32"]
+    opts = profile_inference.build_parser("PROF_BATCH", b, lo, hi, "").parse_args(flags)
+    s = profile_inference.setup(opts)
+    rows = {"predict": profile_inference.profile(s, opts)}
+    with profile_inference.predict_internals(s.engine.model) as seen:
+        profile_inference.stage_predict(s)
+    _, props = profile_inference.stage_proposals(s)
+    logits, _ = profile_inference.stage_detect(s)
+    check(all(torch.equal(got, want) for got, want in zip(props, seen["proposals"])),
+          "stage isolation: stage 2's proposals differ from the predict program's")
+    check(torch.equal(logits, seen["logits"]), "stage isolation: stage 3's logits differ from the predict program's")
+    del s, props, logits, seen
+    torch.cuda.empty_cache()
+    t = profile_train.setup(opts)
+    rows["train"] = profile_train.profile(t, opts)
+    t.engine.model.train()
+    want = compute_losses(t.engine.model, t.batch, t.grid, draws=t.draws)[0].detach()
+    losses = {"no_grad": profile_train.stage_losses(t), "backward": profile_train.stage_backward(t),
+              "train_step": profile_train.stage_step(t).total}
+    t.restore()
+    check(all(torch.equal(v, want) for v in losses.values()),
+          f"stage isolation: a train stage's loss differs from compute_losses' {want.item()!r}: "
+          f"{ {k: v.item() for k, v in losses.items()} }")
+    print(f"stage isolation: prefixes equal the programs' values (proposals, logits, loss {want.item()!r})", flush=True)
+    del t
+    torch.cuda.empty_cache()
+    for kind, table in rows.items():
+        for row in table:
+            check(np.isfinite(row["slope_ms"]) and row["slope_ms"] > 0, f"stage isolation, {kind}: no slope: {row}")
+        print(f"stage isolation {kind} (B={b}, f32, TF32 off): "
+              + "; ".join(f"{r['stage']} {r['slope_ms']!r} ms, device busy {r['device_busy_ms']!r}" for r in table)
+              + f" [{card}]", flush=True)
+    grad = gradcheck_roi_vjp.gradcheck("cuda", c=512)
+    check(grad["ok"], f"RoI VJP gradient check failed its gates: {grad}")
+    print(f"RoI VJP gradcheck C=512: {json.dumps(grad)} [{card}]", flush=True)
+    launches = path_launches(counters, ("nms_keep_mask", "roi_pool_taps", "roi_pool_taps_bwd"), "stage isolation")
+    print(f"phase 6s took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"rows": rows, "gradcheck": grad}, launches
+
+
 def run_cli(args):
-    """`python -m fasterrcnn_torch` in this process (`__main__.main(args)`),
+    """`python -m fasterrcnn_torch` in this process (`cli.main(args)`),
     its standard output captured; the lines a user reads for the result are
     echoed. An error in the CLI is not caught."""
-    from fasterrcnn_torch import __main__ as cli
+    from fasterrcnn_torch import cli
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -2257,71 +2325,15 @@ def phase_timing(engine, engine16, images, image_hw, card):
     return out
 
 
-# Layer of a device kernel in the profile: the first group one of whose
-# patterns its name contains.
-PROFILE_LAYERS = (
-    ("nms_keep_mask", ("nms_iou_mask_kernel", "nms_scan_kernel")),
-    ("roi_pool_taps_bwd", ("roi_pool_taps_bwd_kernel",)),
-    ("roi_pool_taps", ("roi_pool_taps_kernel",)),
-    ("roi_pool_fused", ("roi_pool_fused_kernel",)),
-    ("conv (hand-written)", (
-        "conv3x3_f32_kernel", "conv3x3_im2col_f32_kernel", "conv3x3_bf16_kernel", "conv3x3_im2col_bf16_kernel",
-    )),
-    ("host-to-device copy", ("Memcpy HtoD",)),
-    ("max pool", ("max_pool",)),
-    ("conv (cuDNN)", (
-        "fprop", "dgrad", "wgrad", "implicit_gemm", "convolve", "winograd", "nchwToNhwc", "nhwcToNchw",
-    )),
-    # Other GEMMs: cuBLAS's (fc layers, heads), and in the f32 train step also
-    # cuDNN's GEMM-named conv-backward kernels (the complex-f32 ones are its
-    # FFT convolution); top_kernels_ms in the output tells them apart.
-    ("matmul (cuBLAS, and cuDNN GEMMs)", ("gemm", "nvjet")),
-    ("optimizer", ("multi_tensor_apply",)),
-    ("sort", ("Sort", "sort", "radix")),
-    ("elementwise and small ops", (
-        "elementwise", "copy", "Memset", "Memcpy", "reduce", "Reduce", "softmax", "index", "gather",
-        "scatter", "scan", "cat",
-    )),
-)
-
-
 def phase_profile(calls, card, reps=3):
     """Device time by layer over warm calls of each entry of `calls` (label
     -> function; torch.profiler, TF32 off), the device's idle share and the
-    kernel launches per call."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    kernel launches per call (`utils/profiling.device_profile`)."""
+    from fasterrcnn_torch.utils.profiling import device_profile
 
     out = {}
     for label, fn in calls.items():
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0) / reps
-        by_layer, launches, kernels = {}, 0, []
-        for evt in prof.key_averages():
-            if evt.device_type != torch.autograd.DeviceType.CUDA or evt.self_device_time_total <= 0:
-                continue
-            if evt.key.startswith("Optimizer."):
-                continue  # torch.optim's annotation: a device range over kernels counted on their own
-            layer = next((name for name, pats in PROFILE_LAYERS if any(s in evt.key for s in pats)), "other")
-            ms = evt.self_device_time_total / 1e3 / reps
-            by_layer[layer] = by_layer.get(layer, 0.0) + ms
-            launches += evt.count
-            kernels.append((ms, layer, evt.key[:90]))
-        busy = sum(by_layer.values())
-        out[label] = {
-            "wall_ms_per_call_profiler_on": wall_ms,
-            "device_busy_ms_per_call": busy,
-            "device_idle_share": max(0.0, 1.0 - busy / wall_ms) if busy > 0 else "not measured",
-            "device_ops_per_call": launches / reps,
-            "by_layer_ms": dict(sorted(by_layer.items(), key=lambda kv: -kv[1])),
-            "top_kernels_ms": [[ms, layer, name] for ms, layer, name in sorted(kernels, reverse=True)[:12]],
-        }
+        out[label] = device_profile(fn, reps)
         print(f"profile {label}: {json.dumps(out[label])} [{card}]", flush=True)
     return out
 
@@ -2433,6 +2445,7 @@ def main() -> None:
     }, card)
     del rt_engine, rt_engine16
     torch.cuda.empty_cache()
+    _, stage_launches = phase_stage_isolation(counters, card)
     other_launches = {f"{name}_predict": phase_predict_only(counters, name, r_images, r_hw)
                       for name in ("resnet50", "resnet152")}
 
@@ -2468,7 +2481,8 @@ def main() -> None:
              "resnet101_predict": r_launches, "resnet101_train": r_train_launches, **other_launches,
              "cli_resnet101_eval": cli_resnet_launches, **exact_launches, **overfit_launches,
              "cli_exact_pool_eval": cli_exact_launches, **loop_launches, "cli_diagnostics": cli_diag_launches,
-             "bench": bench_launches, **dp_launches, **tp_launches, "parity": parity_launches}
+             "bench": bench_launches, **dp_launches, **tp_launches, "stage_isolation": stage_launches,
+             "parity": parity_launches}
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}

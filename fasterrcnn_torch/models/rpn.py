@@ -44,6 +44,40 @@ class Proposals(NamedTuple):
     valid: torch.Tensor  # (B, K_post) 1.0 = real proposal
 
 
+def proposal_candidates(
+    objectness_logits: torch.Tensor,
+    box_deltas: torch.Tensor,
+    anchor_centers: torch.Tensor,
+    proposal_mask: torch.Tensor,
+    image_height: torch.Tensor,
+    image_width: torch.Tensor,
+    pre_nms_top_k: int,
+    min_side: float = 16.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The RPN NMS's input: the top `pre_nms_top_k` anchors by score,
+    decoded and clipped, in descending score order -> boxes (B, K_pre, 4),
+    scores (B, K_pre) and valid (B, K_pre) (eligible and at least `min_side`
+    on both sides). Arguments as `generate_proposals`."""
+    b, a = objectness_logits.shape
+    k_pre = min(pre_nms_top_k, a)
+
+    scores = torch.where(proposal_mask > 0, objectness_logits.float(), nms_ops.NEG_INF)
+    top_scores, top_idx = torch.sort(scores, dim=1, descending=True, stable=True)
+    top_scores, top_idx = top_scores[:, :k_pre], top_idx[:, :k_pre]
+
+    deltas = torch.gather(box_deltas, 1, top_idx[:, :, None].expand(b, k_pre, 4))
+    anchors = anchor_centers[top_idx]  # (B, K_pre, 4)
+    boxes = box_ops.decode_deltas(deltas, anchors)
+    boxes = box_ops.clip_to_image(boxes, image_height[:, None], image_width[:, None])
+
+    # Size filter as a mask.
+    heights = boxes[..., 2] - boxes[..., 0]
+    widths = boxes[..., 3] - boxes[..., 1]
+    size_ok = (heights >= min_side) & (widths >= min_side)
+    valid = (top_scores > nms_ops.NEG_INF) & size_ok
+    return boxes, top_scores, valid
+
+
 def generate_proposals(
     objectness_logits: torch.Tensor,
     box_deltas: torch.Tensor,
@@ -66,26 +100,13 @@ def generate_proposals(
       image_height / image_width: (B,) real image extents (clip targets).
       pre_nms_top_k / post_nms_top_k: static caps.
 
-    Returns score-ordered padded proposals.
+    Returns score-ordered padded proposals: `proposal_candidates`, then
+    greedy NMS.
     """
-    b, a = objectness_logits.shape
-    k_pre = min(pre_nms_top_k, a)
-
-    scores = torch.where(proposal_mask > 0, objectness_logits.float(), nms_ops.NEG_INF)
-    top_scores, top_idx = torch.sort(scores, dim=1, descending=True, stable=True)
-    top_scores, top_idx = top_scores[:, :k_pre], top_idx[:, :k_pre]
-
-    deltas = torch.gather(box_deltas, 1, top_idx[:, :, None].expand(b, k_pre, 4))
-    anchors = anchor_centers[top_idx]  # (B, K_pre, 4)
-    boxes = box_ops.decode_deltas(deltas, anchors)
-    boxes = box_ops.clip_to_image(boxes, image_height[:, None], image_width[:, None])
-
-    # Size filter as a mask.
-    heights = boxes[..., 2] - boxes[..., 0]
-    widths = boxes[..., 3] - boxes[..., 1]
-    size_ok = (heights >= min_side) & (widths >= min_side)
-    valid = (top_scores > nms_ops.NEG_INF) & size_ok
-
+    boxes, top_scores, valid = proposal_candidates(
+        objectness_logits, box_deltas, anchor_centers, proposal_mask, image_height, image_width,
+        pre_nms_top_k, min_side,
+    )
     result = nms_ops.nms(
         boxes,
         top_scores,

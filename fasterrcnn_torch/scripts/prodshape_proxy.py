@@ -67,7 +67,7 @@ class _Tee(io.TextIOBase):
 
 def run_cli(args):
     """`python -m fasterrcnn_torch` with `args`; returns what it printed."""
-    from fasterrcnn_torch.__main__ import main as cli_main
+    from fasterrcnn_torch.cli import main as cli_main
 
     tee = _Tee()
     with contextlib.redirect_stdout(tee):

@@ -46,6 +46,7 @@ checkout's kernels on the same draws:
 
 Usage (on the card; no fallback):
     python -m fasterrcnn_torch.scripts.reference_train [--draws 24] [--first-seed 0] [--diagnose]
+    python -m fasterrcnn_torch.scripts.reference_train --graph-vs-eager 10
 """
 
 from __future__ import annotations
@@ -288,7 +289,7 @@ def load_train_state(engine, state) -> None:
     engine._global_step = 0
 
 
-def graph_against_eager(replicas: int = 6) -> Dict:
+def graph_against_eager(replicas: int = 6, graph_replays: int = 5) -> Dict:
     """The captured train programs (`Engine.train_epoch`, FRCNN_SCAN_STEPS=2
     and =1) against eager `Engine.train_step` on the card, on the every-box
     config, f32 with TF32 off, SGD under a cosine schedule, 5 batches of 2.
@@ -306,12 +307,18 @@ def graph_against_eager(replicas: int = 6) -> Dict:
         later losses and the final parameters are reported beside the eager
         runs' spread, not checked);
       * teacher-forced programs: before each program (a 2-step block or a
-        single step) the graph engine and `replicas - 1` eager replicas are
-        put into the eager reference's state; the program's first losses
-        must be identical, and its later losses and the parameters after it
-        within twice the largest gap between two eager replicas over the
+        single step) `replicas - 1` eager replicas, and the graph engine
+        before each of its `graph_replays` replays, are put into the eager
+        reference's state; the program's first losses must be identical in
+        every run and replay, and its later losses and the parameters after
+        it within twice the largest gap between two eager replicas over the
         programs of both runs (one backward's nondeterminism, a few ulps,
-        measured on every program);
+        measured on every program), in the replay closest to the reference
+        (losses and parameters each). A replay is one more draw of that
+        nondeterminism, so one replay alone can land outside the bound when
+        the eager runs happen to agree (a loss near 3 moves in ulps of
+        2.4e-7; `--graph-vs-eager N` counts how often), while a capture
+        that differs from the eager program does so in every replay;
       * the packed program, step by step: the learning rate of each step
         and the sampling generator's offset after it equal the eager run's
         (every replay draws afresh).
@@ -379,7 +386,8 @@ def graph_against_eager(replicas: int = 6) -> Dict:
             "last_epoch_trace": dict(engine.last_epoch_trace)}
 
     # Teacher-forced programs.
-    graph_gaps = {k: [0.0, 0.0] for k in graphs}  # (later losses, parameters)
+    graph_gaps = {k: [0.0, 0.0] for k in graphs}  # (later losses, parameters), the closest replay
+    first_gaps = {k: [0.0, 0.0] for k in graphs}  # the same, the first replay alone
     spreads = [0.0, 0.0]
     for k, engine in graphs.items():
         load_train_state(ref, first)
@@ -391,19 +399,24 @@ def graph_against_eager(replicas: int = 6) -> Dict:
             for _ in range(replicas - 1):
                 load_train_state(replica, state)
                 runs.append((eager_rows(replica, block), params(replica)))
-            load_train_state(engine, state)
             images = torch.as_tensor(np.stack([hb.images for hb in block]), device=dev)
             aux = torch.as_tensor(np.stack([pack_aux(hb, start + i) for i, hb in enumerate(block)]), device=dev)
-            if len(block) == k and k > 1:
-                rows = engine.scan_step_for(canvas, k)(images, aux).cpu().numpy()
-            else:
-                rows = engine.packed_step_for(canvas)(images[0], aux[0])[1][None].cpu().numpy()
-            graph_run = (rows.astype(np.float64), params(engine))
-            if any(not np.array_equal(r[0][0], runs[0][0][0]) for r in (*runs[1:], graph_run)):
+            graph_runs = []
+            for _ in range(graph_replays):
+                load_train_state(engine, state)
+                if len(block) == k and k > 1:
+                    rows = engine.scan_step_for(canvas, k)(images, aux).cpu().numpy()
+                else:
+                    rows = engine.packed_step_for(canvas)(images[0], aux[0])[1][None].cpu().numpy()
+                graph_runs.append((rows.astype(np.float64), params(engine)))
+            if any(not np.array_equal(r[0][0], runs[0][0][0]) for r in (*runs[1:], *graph_runs)):
                 failures.append(f"FRCNN_SCAN_STEPS={k}, program at step {start}: first losses differ")
             gaps = graph_gaps[k]
-            gaps[0] = max(gaps[0], float(np.abs(graph_run[0][1:] - runs[0][0][1:]).max(initial=0.0)))
-            gaps[1] = max(gaps[1], gap(graph_run[1], runs[0][1]))
+            gaps[0] = max(gaps[0], min(float(np.abs(g[0][1:] - runs[0][0][1:]).max(initial=0.0)) for g in graph_runs))
+            gaps[1] = max(gaps[1], min(gap(g[1], runs[0][1]) for g in graph_runs))
+            alone = first_gaps[k]
+            alone[0] = max(alone[0], float(np.abs(graph_runs[0][0][1:] - runs[0][0][1:]).max(initial=0.0)))
+            alone[1] = max(alone[1], gap(graph_runs[0][1], runs[0][1]))
             for i, a in enumerate(runs):
                 for b in runs[i + 1:]:
                     spreads[0] = max(spreads[0], float(np.abs(a[0][1:] - b[0][1:]).max(initial=0.0)))
@@ -411,7 +424,11 @@ def graph_against_eager(replicas: int = 6) -> Dict:
             load_train_state(ref, after)
     out["teacher_forced_eager_spread"] = {"loss": spreads[0], "param": spreads[1]}
     for k, (loss_gap, param_gap) in graph_gaps.items():
-        out[f"teacher_forced_scan_steps_{k}"] = {"loss_gap": loss_gap, "param_gap": param_gap}
+        alone = first_gaps[k]
+        out[f"teacher_forced_scan_steps_{k}"] = {
+            "loss_gap": loss_gap, "param_gap": param_gap, "first_replay_loss_gap": alone[0],
+            "first_replay_param_gap": alone[1],
+            "first_replay_over": alone[0] > 2 * spreads[0] or alone[1] > 2 * spreads[1]}
         if loss_gap > 2 * spreads[0] or param_gap > 2 * spreads[1]:
             failures.append(f"FRCNN_SCAN_STEPS={k}, teacher-forced: graph gaps {loss_gap}, {param_gap} over twice "
                             f"the eager spreads {spreads}")
@@ -438,6 +455,25 @@ def graph_against_eager(replicas: int = 6) -> Dict:
     return out
 
 
+def graph_against_eager_runs(n: int) -> List[Dict]:
+    """`graph_against_eager` `n` times: one JSON line each, then how many
+    runs failed a check and how many would have failed the teacher-forced
+    check had it read only the first replay of each program."""
+    import torch
+
+    rows = []
+    for _ in range(n):
+        rows.append(graph_against_eager())
+        print(json.dumps(rows[-1]), flush=True)
+    print(json.dumps(dict(
+        runs=n, failed=sum(bool(r["failures"]) for r in rows),
+        first_replay_over=sum(any(v["first_replay_over"] for k, v in r.items() if k.startswith("teacher_forced_scan"))
+                              for r in rows),
+        card=torch.cuda.get_device_name(0),
+    )), flush=True)
+    return rows
+
+
 def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     import torch
 
@@ -445,11 +481,15 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     ap.add_argument("--draws", type=int, default=24)
     ap.add_argument("--first-seed", type=int, default=0)
     ap.add_argument("--diagnose", action="store_true", help="also where each draw's gap is born")
+    ap.add_argument("--graph-vs-eager", type=int, default=0, metavar="N",
+                    help="instead: run graph_against_eager N times and count the failed checks")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("reference_train: no CUDA device")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.graph_vs_eager:
+        return graph_against_eager_runs(args.graph_vs_eager)
     dev = torch.device("cuda")
     rows = []
     for seed in range(args.first_seed, args.first_seed + args.draws):

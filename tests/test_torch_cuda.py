@@ -628,9 +628,9 @@ def test_cuda_uploads_from_the_prefetch_thread_arrive_before_the_step(cuda, monk
 def test_cuda_captured_epoch_matches_eager_steps(cuda):
     """`reference_train.graph_against_eager`, as `chip_smoke.py` phase 6e
     runs it: step 0's losses identical; each teacher-forced program's later
-    losses and parameters within twice the largest gap between eager
-    replicas (K3's float reductions and cuDNN's backward are not
-    deterministic); the learning rates and the generator's offsets of the
+    losses and parameters, in the closest of its replays, within twice the
+    largest gap between eager replicas (K3's float reductions and cuDNN's
+    backward are not deterministic); the learning rates and the generator's offsets of the
     eager run."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

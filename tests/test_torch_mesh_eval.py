@@ -22,6 +22,8 @@ device's; saved weights bit for bit.
 
 import os
 import shutil
+import subprocess
+import sys
 import threading
 
 import numpy as np
@@ -43,6 +45,7 @@ from tests import torch_mesh_ranks
 from tests.test_torch_predict import CANVAS_H, CANVAS_W, synthetic_images, tiny_config
 
 THRESHOLD = torch_mesh_ranks.THRESHOLD
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def split(module, root):
@@ -209,14 +212,23 @@ def in_tmp_path(tmp_path, monkeypatch):
     shutil.rmtree(tmp_path, ignore_errors=True)
 
 
-def test_cli_num_devices_2_trains_on_two_cpu_ranks_and_rank_0_alone_writes(in_tmp_path, capfd, monkeypatch):
-    # One thread a rank (the ranks' torch reads it as it starts), as the
-    # fixture's ranks: the suite runs beside them, one worker a core.
-    monkeypatch.setenv("OMP_NUM_THREADS", str(torch_mesh_ranks.THREADS))
-    cli.main(["--device", "cpu", "--tiny", "--num-devices", "2", "--train", "--synthetic", "2", "--batch-size", "2",
-              "--epochs", "1", "--eval-batch-size", "2", "--log-csv", "log.csv", "--checkpoint-dir", "ck",
-              "--save-to", "w.pth"])
-    out = capfd.readouterr().out
+def run_module_cli(cwd, *args) -> str:
+    """`python -m fasterrcnn_torch *args` in a child process, as a user runs
+    it (the rank entry is then pickled by the path a spawned rank imports),
+    with one thread a rank as the fixture's ranks: the suite runs beside
+    them, one worker a core. Returns its standard output."""
+    env = dict(os.environ, OMP_NUM_THREADS=str(torch_mesh_ranks.THREADS),
+               PYTHONPATH=os.pathsep.join(filter(None, (REPO, os.environ.get("PYTHONPATH")))))
+    done = subprocess.run([sys.executable, "-m", "fasterrcnn_torch", *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert done.returncode == 0, done.stderr[-4000:]
+    return done.stdout
+
+
+def test_cli_num_devices_2_trains_on_two_cpu_ranks_and_rank_0_alone_writes(in_tmp_path):
+    out = run_module_cli(in_tmp_path, "--device", "cpu", "--tiny", "--num-devices", "2", "--train", "--synthetic",
+                         "2", "--batch-size", "2", "--epochs", "1", "--eval-batch-size", "2", "--log-csv", "log.csv",
+                         "--checkpoint-dir", "ck", "--save-to", "w.pth")
     assert "Device mesh       : dp=2 x tp=1, backend=gloo" in out
     assert out.count("Epoch 1/1") == 1 and out.count("Mean Average Precision = ") == 2
     lines = (in_tmp_path / "log.csv").read_text().strip().splitlines()
@@ -239,11 +251,9 @@ def test_cli_tp_2_still_raises_naming_the_tp_slice(in_tmp_path, capfd, monkeypat
     and on one device render the same file."""
     from PIL import Image
 
-    monkeypatch.setenv("OMP_NUM_THREADS", str(torch_mesh_ranks.THREADS))
     mesh = ["--device", "cpu", "--tiny", "--num-devices", "2", "--tp", "2"]
-    cli.main([*mesh, "--train", "--synthetic", "2", "--batch-size", "2", "--epochs", "1", "--eval-batch-size", "2",
-              "--checkpoint-dir", "ck", "--save-to", "w.pth"])
-    out = capfd.readouterr().out
+    out = run_module_cli(in_tmp_path, *mesh, "--train", "--synthetic", "2", "--batch-size", "2", "--epochs", "1",
+                         "--eval-batch-size", "2", "--checkpoint-dir", "ck", "--save-to", "w.pth")
     assert "Device mesh       : dp=1 x tp=2, backend=gloo" in out
     assert out.count("Epoch 1/1") == 1 and out.count("Mean Average Precision = ") == 2
     assert out.count("Saved model weights to") == 1
@@ -253,6 +263,7 @@ def test_cli_tp_2_still_raises_naming_the_tp_slice(in_tmp_path, capfd, monkeypat
     assert final["roi_head.fc1.weight"].shape == (4096, 25088) and final["roi_head.fc2.weight"].shape == (4096, 4096)
     assert final.keys() == epoch1.keys() and all(torch.equal(final[k], epoch1[k]) for k in final)
 
+    monkeypatch.setenv("OMP_NUM_THREADS", str(torch_mesh_ranks.THREADS))
     image = in_tmp_path / "test.jpg"
     Image.fromarray(np.random.default_rng(0).integers(0, 255, (120, 150, 3), dtype=np.uint8)).save(image)
     rendered = []
